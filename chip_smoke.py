@@ -7,23 +7,42 @@ from the root of the repository. It needs one CUDA card, ``nvcc`` and
 each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``) and CUDA version;
-2. build: compile the flash-attention kernels K1-K3 from
-   ``hetu_galvatron_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``;
+2. build: compile the kernels K1-K5 (flash attention, fused cross-entropy)
+   from ``hetu_galvatron_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs, at the training shape (GPT-2 small: B=8, N=K=12, S=1024, D=64,
+   inputs, every element held within its tolerance, timed beside the plain
+   version, one PyTorch library call and the card's bound for the same
+   work. K1-K3 at GPT-2 small's training shape (B=8, N=K=12, S=1024, D=64,
    bf16 and fp32, causal, q/k/v as strided views of the fused qkv
-   projection) and on small cases covering GQA, segment ids, dropout,
-   non-causal Sk != S, a ragged S and fp16; every element held within its
-   tolerance; timed beside the plain version, one PyTorch library call and
-   the card's bound for the same work;
-4. reference: a small model trained a few steps through the flash kernels
-   agrees with the same run through the plain attention core;
-5. main path: ``hetu_galvatron_tpu_torch.cli.train_dist.train`` on
-   ``gpt2-small.yaml`` at full width and depth (bsz 8, seq 1024, bf16) with
-   the launch counters reset just before it and read just after.
+   projection), at the Qwen2.5-7B path's (B=2, N=28, K=4, S=4096, D=128,
+   bf16, causal with packed segments) and on small cases covering GQA,
+   segment ids, dropout, non-causal Sk != S, a ragged S and fp16. K4/K5 at
+   the Qwen path's logits (T=8192, V=152064, fp32 and bf16) and on small
+   cases: ragged T, V not a multiple of 128, labels at -1 and V, a row of
+   equal logits, a row stride larger than V, fp16, and the z-loss through
+   the autograd composition;
+4. reference: small models trained a few steps on the card, the flash
+   kernels against the plain attention core, and fused cross-entropy with
+   per-layer remat and packed documents against the plain loss without
+   remat;
+5. main path of slice 1: ``hetu_galvatron_tpu_torch.cli.train_dist.train``
+   on ``gpt2-small.yaml`` at full width and depth (bsz 8, seq 1024, bf16);
+6. main path of slice 2: ``train`` on ``qwen2.5-7b.yaml`` at full width cut
+   to 4 layers (bsz 2, seq 4096, bf16, fused cross-entropy, remat on every
+   layer) over a packed indexed corpus written from a seed, with
+   end-of-document loss masking, 8 steps and an eval of the valid and test
+   splits.
+
+Each path runs with the launch counters reset just before it and read
+just after, and must launch each of its kernels exactly as often as its
+layers, steps and evals say.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each kernel's row carries, under
+``paths``, one block per path that runs it: its launches in that run, per
+training step and in the no-grad evals, beside the kernel, plain, library
+and bound times measured at that path's shape. The row's own ``launches``
+and times are those of slice 2's path.
 """
 
 from __future__ import annotations
@@ -33,14 +52,23 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GPT2_YAML = os.path.join(ROOT, "hetu_galvatron_tpu", "models", "configs",
-                         "gpt2-small.yaml")
-# the slice's training shape (GPT-2 small at bsz 8)
+CONFIGS = os.path.join(ROOT, "hetu_galvatron_tpu", "models", "configs")
+GPT2_YAML = os.path.join(CONFIGS, "gpt2-small.yaml")
+QWEN_YAML = os.path.join(CONFIGS, "qwen2.5-7b.yaml")
+# the slice-1 training shape (GPT-2 small at bsz 8)
 B, N, S, D = 8, 12, 1024, 64
+# the slice-2 path: Qwen2.5-7B widths, 4 of 28 layers, bsz 2 at seq 4096
+QB, QN, QK, QS, QD = 2, 28, 4, 4096, 128
+QWEN_LAYERS = 4
+QT, QV = QB * QS, 152064  # rows and padded vocab of the path's logits
+QWEN_EOD = 151643  # Qwen's <|endoftext|>
+QWEN_TOKENIZER_VOCAB = 151665  # len() of the Qwen2.5 tokenizer
 TRAIN_ITERS = 8
+BIG_REPS = 5  # timing repetitions at the Qwen path's shapes
 PROFILE_WARMUP = 2
 REPS = 20
 SPIN_CYCLES = 200_000_000  # about 0.1 s at the H100's clock
@@ -53,7 +81,8 @@ SPIN_CYCLES = 200_000_000  # about 0.1 s at the H100's clock
 # set the largest magnitude.
 TOL_16 = 2e-2
 TOL_FP32 = 1e-4
-TOL_LSE = 1e-3  # absolute, on the fp32 logsumexp
+TOL_LSE = 1e-3  # absolute, on the flash kernels' fp32 logsumexp
+TOL_CE_LSE = 1e-4  # absolute, on K4's fp32 logsumexp (one row, no tiles)
 
 KERNELS = {
     "flash_fwd": dict(
@@ -71,7 +100,17 @@ KERNELS = {
         replaces="hetu_galvatron_tpu/ops/pallas/flash_attention.py:324",
         library_call="scaled_dot_product_attention backward (dq, dk and dv "
                      "in one call: the yardstick of K2 + K3 together)"),
+    "ce_fwd": dict(
+        route="cuda", source="hetu_galvatron_tpu_torch/csrc/ce_fwd.cu",
+        replaces="hetu_galvatron_tpu/ops/pallas/cross_entropy.py:47",
+        library_call="torch.nn.functional.cross_entropy(reduction='none')"),
+    "ce_bwd": dict(
+        route="cuda", source="hetu_galvatron_tpu_torch/csrc/ce_bwd.cu",
+        replaces="hetu_galvatron_tpu/ops/pallas/cross_entropy.py:77",
+        library_call="the backward of torch.nn.functional.cross_entropy("
+                     "reduction='none')"),
 }
+FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 class SmokeFailure(RuntimeError):
@@ -270,12 +309,27 @@ def check_autograd(tag, *, b, n, s, d, dtype):
             for i, x in enumerate("qkv")]
 
 
-def bounds(b, n, kv, s, d, elem, peak_flops, peak_bytes):
+def kept_pairs(b, n, s, segs=None) -> float:
+    """(q, k) pairs a causal kernel must compute: every q's earlier keys,
+    within its own document when ``segs`` [b, s] packs several."""
+    if segs is None:
+        return b * n * s * (s + 1) / 2
+    import torch
+
+    total = 0
+    for row in segs.cpu():
+        _, counts = torch.unique_consecutive(row, return_counts=True)
+        total += int((counts * (counts + 1) // 2).sum())
+    return float(n * total)
+
+
+def bounds(b, n, kv, s, d, elem, peak_flops, peak_bytes, segs=None):
     """Least time (ms) for each kernel's work at this causal shape: bytes
     moved (each input read once, each output written once) over the memory
-    rate, and the tile products over the kept (q, k) pairs over the bf16
-    tensor-core rate; the larger of the two and which one it is."""
-    pairs = b * n * s * (s + 1) / 2  # causal: kept (q, k) pairs
+    rate, and the tile products over the kept (q, k) pairs (within each
+    packed document when ``segs`` is given) over the bf16 tensor-core
+    rate; the larger of the two and which one it is."""
+    pairs = kept_pairs(b, n, s, segs)
     q_bytes = b * n * s * d * elem
     kv_bytes = b * kv * s * d * elem
     row_bytes = b * n * s * 4  # lse / delta, fp32
@@ -303,8 +357,9 @@ def bounds(b, n, kv, s, d, elem, peak_flops, peak_bytes):
     return out
 
 
-def time_kernels(case_inputs):
-    """Kernel, plain and library times (ms) at the training shape."""
+def time_kernels(case_inputs, reps: int = REPS):
+    """Kernel, plain and library times (ms) of K1-K3 on one case's
+    inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -314,27 +369,170 @@ def time_kernels(case_inputs):
     times = {
         "flash_fwd": (
             time_ms(lambda: TF.flash_attention_hmajor(*args, segs, dseed,
-                                                      **kw)),
-            time_ms(lambda: TF.flash_fwd_plain(*args, segs, dseed, **kw))),
+                                                      **kw), reps),
+            time_ms(lambda: TF.flash_fwd_plain(*args, segs, dseed, **kw),
+                    reps)),
         "flash_bwd_dkdv": (
-            time_ms(lambda: TF.flash_bwd_dkdv(*bwd, **kw)),
-            time_ms(lambda: TF.flash_bwd_dkdv_plain(*bwd, **kw))),
+            time_ms(lambda: TF.flash_bwd_dkdv(*bwd, **kw), reps),
+            time_ms(lambda: TF.flash_bwd_dkdv_plain(*bwd, **kw), reps)),
         "flash_bwd_dq": (
-            time_ms(lambda: TF.flash_bwd_dq(*bwd, **kw)),
-            time_ms(lambda: TF.flash_bwd_dq_plain(*bwd, **kw))),
+            time_ms(lambda: TF.flash_bwd_dq(*bwd, **kw), reps),
+            time_ms(lambda: TF.flash_bwd_dq_plain(*bwd, **kw), reps)),
     }
     # the yardstick: PyTorch's own fused attention on the same inputs
-    # (timed here only; the port never calls it)
+    # (timed here only; the port never calls it). GQA k/v are expanded to
+    # the q heads and packed documents become a boolean mask before the
+    # timed call, so the call computes the kernels' function.
+    n = args[0].shape[1]
     qh, kh, vh = (t.detach() for t in args)
+    kh, vh = (t.repeat_interleave(n // t.shape[1], dim=1) for t in (kh, vh))
+    sdpa = dict(is_causal=True)
+    if segs is not None:
+        s = qh.shape[2]
+        causal = torch.ones(s, s, dtype=torch.bool, device=qh.device).tril()
+        sdpa = dict(attn_mask=causal & (segs[:, None, :, None]
+                                        == segs[:, None, None, :]))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True))
-    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in args)
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        qh, kh, vh, **sdpa), reps)
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (qh, kh, vh))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
     do = bwd[3]
     lib_bwd = time_ms(lambda: torch.autograd.grad(
-        lib_out, (ql, kl, vl), do, retain_graph=True))
+        lib_out, (ql, kl, vl), do, retain_graph=True), reps)
     return times, {"flash_fwd": lib_fwd, "flash_bwd_dkdv": lib_bwd,
                    "flash_bwd_dq": lib_bwd}
+
+
+# ---------------------------------------------------------------------------
+# K4/K5: fused cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def compare_exact(name: str, got, want):
+    """Bit-equality (the gathered gold logit is a copy of one input)."""
+    import torch
+
+    torch.cuda.synchronize()
+    ok = got.shape == want.shape and torch.equal(got, want)
+    log(f"  {name:<34} bit-equal {'ok' if ok else 'FAIL'}")
+    if not ok:
+        err = float((got.float() - want.float()).abs().max())
+        raise SmokeFailure(f"{name}: not bit-equal (max abs err {err:.3e})")
+    return {"output": name, "max_abs_err": 0.0, "worst_over_limit": 0.0,
+            "tol": 0.0, "tol_kind": "exact"}
+
+
+def ce_inputs(t, v, dtype, *, ld=None, seed=0, scale=2.0):
+    """Logits [t, v] (a view of a [t, ld] buffer when ``ld`` > v), labels
+    with the first two at -1 and v (out of range: gold 0, no one-hot), the
+    third row all equal, and the backward's per-row a, b."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = scale * torch.randn(t, ld or v, device=dev, generator=gen)
+    x = wide.to(dtype)[:, :v]
+    labels = torch.randint(0, v, (t,), device=dev, generator=gen)
+    labels[:2] = torch.tensor([-1, v], device=dev)
+    x[2] = 1.5
+    a = torch.randn(t, device=dev, generator=gen)
+    b = torch.randn(t, device=dev, generator=gen)
+    return x, labels, a, b
+
+
+def check_ce_case(tag, t, v, dtype, *, ld=None, seed=0):
+    """K4 and K5 against their plain versions on one input set: gold
+    bit-equal, lse within 1e-4 absolute, dlogits elementwise."""
+    import math
+
+    from hetu_galvatron_tpu_torch.ops import cross_entropy as TC
+
+    x, labels, a, b = ce_inputs(t, v, dtype, ld=ld, seed=seed)
+    tol = TOL_FP32 if dtype.itemsize == 4 else TOL_16
+    lse, gold = TC.ce_fwd(x, labels)
+    lse_p, gold_p = TC.ce_fwd_plain(x, labels)
+    fwd = [compare(f"{tag} K4 lse", lse, lse_p, TOL_CE_LSE, absolute=True),
+           compare_exact(f"{tag} K4 gold", gold, gold_p)]
+    want_equal = 1.5 + math.log(v)
+    if (abs(float(lse[2]) - want_equal) > TOL_CE_LSE
+            or float(gold[0]) != 0.0 or float(gold[1]) != 0.0):
+        raise SmokeFailure(f"{tag}: equal row lse {float(lse[2])} (want "
+                           f"{want_equal}) or out-of-range gold "
+                           f"{gold[:2].tolist()} (want 0)")
+    dx = TC.ce_bwd(x, labels, lse, a, b)
+    if dx.dtype != x.dtype:
+        raise SmokeFailure(f"{tag}: dlogits dtype {dx.dtype} != {x.dtype}")
+    bwd = [compare(f"{tag} K5 dlogits", dx,
+                   TC.ce_bwd_plain(x, labels, lse, a, b), tol)]
+    return {"ce_fwd": fwd, "ce_bwd": bwd}, (x, labels, lse, a, b)
+
+
+def check_ce_zloss(t=77, v=1000):
+    """fused_ce_nll with a z-loss, differentiated through K4/K5 (autograd
+    folds 2 z lse into d_lse), against autograd through the plain fp32
+    formula on the same logits."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.ops import cross_entropy as TC
+
+    x, labels, _, _ = ce_inputs(t, v, torch.float32, seed=3)
+    labels = labels.clamp(0, v - 1)
+    g = torch.randn(t, device=x.device)
+    z = 1e-4
+    xk = x.clone().requires_grad_(True)
+    nll = TC.fused_ce_nll(xk, labels, z_loss=z)
+    (gk,) = torch.autograd.grad((nll * g).sum(), xk)
+    xp = x.clone().requires_grad_(True)
+    lse = torch.logsumexp(xp, dim=-1)
+    nll_p = lse - xp.gather(-1, labels[:, None])[:, 0] + z * lse.square()
+    (gp,) = torch.autograd.grad((nll_p * g).sum(), xp)
+    return [compare("z-loss fp32 nll", nll.detach(), nll_p.detach(),
+                    TOL_FP32),
+            compare("z-loss fp32 d logits", gk, gp, TOL_FP32)]
+
+
+def ce_bounds(t, v, elem, peak_bytes, peak_fp32):
+    """Least time (ms) of K4 and K5 at [t, v]: bytes (logits read once,
+    int64 labels and fp32 row vectors read or written once, K5's dlogits
+    written once) against fp32 operations outside the tensor cores (K4:
+    max, subtract, exp, add per logit; K5: subtract, exp, multiply,
+    compare, subtract per logit)."""
+    work = {"ce_fwd": (4 * t * v, t * v * elem + t * 8 + 2 * t * 4),
+            "ce_bwd": (5 * t * v, 2 * t * v * elem + t * 8 + 3 * t * 4)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / peak_fp32 * 1e3, nbytes / peak_bytes * 1e3
+        out[name] = dict(flops=ops, bytes=nbytes,
+                         bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes")
+    return out
+
+
+def time_ce(inputs, reps: int = BIG_REPS):
+    """Kernel, plain and library times (ms) of K4 and K5 on one input set
+    (all labels in range for the library call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hetu_galvatron_tpu_torch.ops import cross_entropy as TC
+
+    x, labels, lse, a, b = inputs
+    times = {
+        "ce_fwd": (time_ms(lambda: TC.ce_fwd(x, labels), reps),
+                   time_ms(lambda: TC.ce_fwd_plain(x, labels), reps)),
+        "ce_bwd": (time_ms(lambda: TC.ce_bwd(x, labels, lse, a, b), reps),
+                   time_ms(lambda: TC.ce_bwd_plain(x, labels, lse, a, b),
+                           reps)),
+    }
+    lab = labels.clamp(0, x.shape[1] - 1)
+    lib_fwd = time_ms(lambda: F.cross_entropy(x, lab, reduction="none"),
+                      reps)
+    xl = x.detach().clone().requires_grad_(True)
+    out = F.cross_entropy(xl, lab, reduction="none")
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, xl, a,
+                                                  retain_graph=True), reps)
+    return times, {"ce_fwd": lib_fwd, "ce_bwd": lib_bwd}
 
 
 def reference_run():
@@ -363,6 +561,154 @@ def reference_run():
     return runs
 
 
+def split_samples(prefix: str, split: str, seq: int):
+    """Samples of seq + 1 tokens in the train, valid and test splits."""
+    from hetu_galvatron_tpu_torch.data import indexed_dataset as TI
+
+    idx = TI.IndexedDataset(prefix)
+    return [len(TI.GPTDataset(idx, seq, doc_range=r))
+            for r in TI.split_doc_ranges(len(idx), split)]
+
+
+def reference_run_ce(tmp: str):
+    """A small Qwen-shaped model (GQA 4:2, qkv bias, untied head), 3 steps
+    in fp32 on a packed corpus, both runs through the flash kernels: fused
+    cross-entropy (K4/K5) with remat on every layer against the plain loss
+    without remat (same weights, same batches)."""
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import (
+        packed_corpus_overrides,
+        write_random_corpus,
+    )
+
+    prefix = os.path.join(tmp, "small_corpus")
+    write_random_corpus(prefix, docs=300, mean_len=200, vocab=4096, eod=4000,
+                        tokenizer_vocab=4001, seed=1)
+    over = ["model.hidden_size=256", "model.num_hidden_layers=2",
+            "model.num_attention_heads=4", "model.num_key_value_heads=2",
+            "model.ffn_hidden_size=512", "model.vocab_size=4096",
+            "model.seq_length=320", "parallel.global_train_batch_size=4",
+            "train.train_iters=3", "parallel.mixed_precision=fp32",
+            "train.lr=1e-3", *packed_corpus_overrides(prefix)]
+    runs = {}
+    for fused in (True, False):
+        args = load_config(QWEN_YAML, over + [
+            f"model.use_fused_ce={fused}",
+            f"parallel.global_checkpoint={int(fused)}"])
+        runs[fused] = train(args)["losses"]
+    log(f"  fused CE + remat losses {runs[True]}")
+    log(f"  plain CE, no remat      {runs[False]}")
+    for a, b in zip(runs[True], runs[False]):
+        if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+            raise SmokeFailure(f"fused CE + remat run {runs[True]} departs "
+                               f"from the plain run {runs[False]}")
+    return runs
+
+
+def qwen_path(peak_flops: float, tmp: str):
+    """Slice 2's main path: Qwen2.5-7B widths cut to 4 layers, bsz 2 at seq
+    4096, bf16, fused cross-entropy, remat on every layer, over a packed
+    indexed corpus with eod masking; 8 steps, then one batch each of the
+    valid and test splits under no_grad. Launch counts reset just before
+    and read just after."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import (
+        packed_corpus_overrides,
+        write_random_corpus,
+    )
+    from hetu_galvatron_tpu_torch.models.builder import model_flops_per_token
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    prefix = os.path.join(tmp, "qwen_corpus")
+    corpus = write_random_corpus(prefix, docs=600, mean_len=1500, vocab=QV,
+                                 eod=QWEN_EOD,
+                                 tokenizer_vocab=QWEN_TOKENIZER_VOCAB)
+    samples = split_samples(prefix, "98,1,1", QS)
+    log(f"  corpus: {corpus['documents']} documents, {corpus['tokens']} "
+        f"tokens; samples of {QS + 1} tokens per split (train, valid, "
+        f"test): {samples}")
+    if min(samples[1:]) < 1:
+        raise SmokeFailure(f"an eval split holds no {QS + 1}-token sample: "
+                           f"{samples}")
+    args = load_config(QWEN_YAML, [
+        f"model.num_hidden_layers={QWEN_LAYERS}", "model.use_fused_ce=true",
+        "parallel.global_checkpoint=1", "parallel.mixed_precision=bf16",
+        f"parallel.global_train_batch_size={QB}",
+        f"train.train_iters={TRAIN_ITERS}",
+        f"train.eval_interval={TRAIN_ITERS}", "train.eval_iters=1",
+        "profile.profile=1", f"profile.profile_warmup={PROFILE_WARMUP}",
+        *packed_corpus_overrides(prefix)])
+    cfg = args.model
+    L, evals = cfg.num_hidden_layers, 2  # valid after the last step, test
+    # per training step (remat runs K1 twice a layer) and per no-grad eval
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L,
+                "ce_fwd": 1, "ce_bwd": 1}
+    per_eval = {"flash_fwd": L, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                "ce_fwd": 1, "ce_bwd": 0}
+    want = {k: per_step[k] * TRAIN_ITERS + per_eval[k] * evals
+            for k in per_step}
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    losses = out["losses"]
+    log(f"  losses {losses}; validation {out['val_losses']}; test "
+        f"{out['test_loss']}")
+    evals_seen = [v["loss"] for v in out["val_losses"]] + [out["test_loss"]]
+    if (len(losses) != TRAIN_ITERS or len(evals_seen) != evals
+            or not all(map(math.isfinite, losses + evals_seen))):
+        raise SmokeFailure(f"losses {losses} / evals {evals_seen} not all "
+                           "finite")
+    # random logits of std 0.02 * sqrt(hidden) (untied head over unit-rms
+    # states) put the expected step-0 loss at ln V + sigma^2 / 2
+    ln_v = math.log(cfg.padded_vocab_size)
+    expect0 = ln_v + 0.5 * 0.02 ** 2 * cfg.hidden_size
+    if abs(losses[0] - expect0) > 0.5:
+        raise SmokeFailure(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
+                           f"of ln V + sigma^2/2 = {expect0:.4f}")
+    log(f"  launches {launches} (want {want}: {L} layers, {TRAIN_ITERS} "
+        f"steps with remat, {evals} no-grad evals)")
+    if launches != want:
+        raise SmokeFailure(f"launches {launches}, want {want}")
+    # exact, so the training-step share is the count less the evals'
+    step_launches = {k: (launches[k] - per_eval[k] * evals) / TRAIN_ITERS
+                     for k in launches}
+    eval_launches = {k: per_eval[k] * evals for k in launches}
+    step_ms = out["iter_ms"]
+    tok_s = QB * cfg.seq_length / (step_ms / 1e3)
+    fpt = model_flops_per_token(cfg)
+    mfu = tok_s * fpt / peak_flops
+    summary = dict(
+        model=cfg.model_name, layers=cfg.num_hidden_layers,
+        hidden=cfg.hidden_size, ffn=cfg.ffn_dim,
+        heads=f"{cfg.num_attention_heads}:{cfg.kv_heads}",
+        vocab=cfg.padded_vocab_size, global_batch=QB, seq=cfg.seq_length,
+        dtype=args.parallel.mixed_precision, fused_ce=True,
+        remat=cfg.remat_policy, steps=TRAIN_ITERS,
+        timed_steps=TRAIN_ITERS - PROFILE_WARMUP, step_ms=step_ms,
+        tokens_per_s=tok_s, model_flops_per_token=fpt, mfu=mfu,
+        peak_tflops=peak_flops / 1e12, wall_s=wall,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        losses=losses, expected_step0_loss=expect0, val_losses=out[
+            "val_losses"], test_loss=out["test_loss"], launches=launches,
+        launches_per_step=step_launches, eval_launches=eval_launches,
+        corpus=dict(corpus, samples_per_split=samples))
+    log(f"  step {step_ms:.2f} ms (mean of steps {PROFILE_WARMUP}.."
+        f"{TRAIN_ITERS - 1}, CUDA events), {tok_s:.0f} tokens/s, MFU "
+        f"{100 * mfu:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
+        f"({fpt / 1e9:.3f} GFLOP/token), peak memory "
+        f"{summary['peak_mem_gb']:.1f} GiB")
+    log("qwen path: " + json.dumps(summary))
+    return summary
+
+
 def main_path(peak_flops: float):
     """GPT-2 small training through the port's train_dist, launch counts
     reset just before and read just after."""
@@ -371,20 +717,20 @@ def main_path(peak_flops: float):
     from hetu_galvatron_tpu_torch.cli.train_dist import train
     from hetu_galvatron_tpu_torch.core.arguments import load_config
     from hetu_galvatron_tpu_torch.models.builder import model_flops_per_token
-    from hetu_galvatron_tpu_torch.ops import flash_attention as TF
+    from hetu_galvatron_tpu_torch.ops import _build
 
     args = load_config(GPT2_YAML, [
         "parallel.global_train_batch_size=8",
         "parallel.mixed_precision=bf16", f"train.train_iters={TRAIN_ITERS}",
         "profile.profile=1", f"profile.profile_warmup={PROFILE_WARMUP}"])
     cfg = args.model
-    TF.reset_launch_counts()
+    _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = train(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(TF.launch_counts)
+    launches = dict(_build.launch_counts)
     losses = out["losses"]
     log(f"  losses {losses}")
     if len(losses) != TRAIN_ITERS or not all(map(math.isfinite, losses)):
@@ -393,12 +739,13 @@ def main_path(peak_flops: float):
     if abs(losses[0] - ln_v) > 0.5:
         raise SmokeFailure(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
                            f"of ln({cfg.padded_vocab_size}) = {ln_v:.4f}")
-    want = cfg.num_hidden_layers * TRAIN_ITERS
-    log(f"  launches {launches} (want {want} each: "
-        f"{cfg.num_hidden_layers} layers x {TRAIN_ITERS} steps)")
-    for name, count in launches.items():
-        if count != want:
-            raise SmokeFailure(f"{name} launched {count} times, want {want}")
+    n = cfg.num_hidden_layers * TRAIN_ITERS
+    want = {k: n if k in FLASH else 0 for k in launches}
+    log(f"  launches {launches} (want {n} of each flash kernel: "
+        f"{cfg.num_hidden_layers} layers x {TRAIN_ITERS} steps; the plain "
+        "cross-entropy, no K4/K5)")
+    if launches != want:
+        raise SmokeFailure(f"launches {launches}, want {want}")
     step_ms = out["iter_ms"]
     tokens = args.parallel.global_train_batch_size * cfg.seq_length
     tok_s = tokens / (step_ms / 1e3)
@@ -412,13 +759,87 @@ def main_path(peak_flops: float):
         step_ms=step_ms, tokens_per_s=tok_s, model_flops_per_token=fpt,
         mfu=mfu, peak_tflops=peak_flops / 1e12, wall_s=wall,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-        losses=losses, launches=launches)
+        losses=losses, launches=launches,
+        launches_per_step={k: v / TRAIN_ITERS for k, v in launches.items()},
+        eval_launches={k: 0 for k in launches})
     log(f"  step {step_ms:.2f} ms (mean of steps {PROFILE_WARMUP}.."
         f"{TRAIN_ITERS - 1}, CUDA events), {tok_s:.0f} tokens/s, MFU "
         f"{100 * mfu:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
         f"({fpt / 1e9:.3f} GFLOP/token)")
     log("main path: " + json.dumps(summary))
     return summary
+
+
+def log_times(tag, times, lib, bnd):
+    for k, (kms, pms) in times.items():
+        log(f"  {tag}: {k:<16} kernel {kms:.3f} ms  plain {pms:.3f} ms  "
+            f"library {lib[k]:.3f} ms  bound {bnd[k]['bound_ms']:.4f} ms "
+            f"({bnd[k]['bound_by']})")
+
+
+def check_qwen_flash(peak_flops, peak_bytes):
+    """K1-K3 at the Qwen path's attention shape (bf16, causal, packed
+    segments, q/k/v as views of the fused qkv projection): checked against
+    the plain versions and timed; the inputs are released on return."""
+    import torch
+
+    tag = f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} bf16 seg"
+    res, inputs = check_case(tag, b=QB, n=QN, kv=QK, s=QS, sk=QS, d=QD,
+                             dtype=torch.bfloat16, causal=True, seg=True,
+                             rate=0.0, layout="fused")
+    times, lib = time_kernels(inputs, reps=BIG_REPS)
+    bnd = bounds(QB, QN, QK, QS, QD, 2, peak_flops, peak_bytes,
+                 segs=inputs[2])
+    log_times("Qwen shape", times, lib, bnd)
+    timing = {k: dict(ms=times[k][0], plain_ms=times[k][1],
+                      library_ms=lib[k], bound_ms=bnd[k]["bound_ms"],
+                      bound_by=bnd[k]["bound_by"], flops=bnd[k]["flops"],
+                      bytes=bnd[k]["bytes"], shape=tag) for k in times}
+    return {"checks": {k: [dict(r, case=tag) for r in recs]
+                       for k, recs in res.items()}, "timing": timing}
+
+
+def check_ce(peak_bytes):
+    """K4/K5 against their plain versions at the path's logits (fp32, the
+    path's dtype, and bf16) and on the small cases; timed at the path's
+    shape in both dtypes."""
+    import torch
+
+    checks = {"ce_fwd": [], "ce_bwd": []}
+    timing = {}
+    peak_fp32 = 67e12  # H100 SXM fp32 outside the tensor cores
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        res, inputs = check_ce_case(f"qwen T={QT} V={QV} {tag}", QT, QV,
+                                    dtype, seed=11)
+        for k, recs in res.items():
+            checks[k] += [dict(r, case=f"qwen {tag}") for r in recs]
+        times, lib = time_ce(inputs)
+        del inputs
+        torch.cuda.empty_cache()
+        bnd = ce_bounds(QT, QV, dtype.itemsize, peak_bytes, peak_fp32)
+        log_times(f"T={QT} V={QV} {tag}", times, lib, bnd)
+        timing[tag] = {k: dict(ms=times[k][0], plain_ms=times[k][1],
+                               library_ms=lib[k],
+                               bound_ms=bnd[k]["bound_ms"],
+                               bound_by=bnd[k]["bound_by"],
+                               flops=bnd[k]["flops"], bytes=bnd[k]["bytes"])
+                       for k in times}
+    small = [("ragged T=77 V=1000 fp32", dict(t=77, v=1000,
+                                              dtype=torch.float32)),
+             ("ragged T=77 V=1000 bf16", dict(t=77, v=1000,
+                                              dtype=torch.bfloat16)),
+             ("V=50257 T=64 fp32", dict(t=64, v=50257, dtype=torch.float32)),
+             ("V=50257 T=64 bf16", dict(t=64, v=50257, dtype=torch.bfloat16)),
+             ("V=50257 T=64 fp16", dict(t=64, v=50257, dtype=torch.float16)),
+             ("row stride 1024 > V=1000 fp32",
+              dict(t=33, v=1000, ld=1024, dtype=torch.float32)),
+             ("row stride 1003 > V=1000 bf16",
+              dict(t=33, v=1000, ld=1003, dtype=torch.bfloat16))]
+    for tag, kw in small:
+        res, _ = check_ce_case(tag, seed=len(tag), **kw)
+        for k, recs in res.items():
+            checks[k] += [dict(r, case=tag) for r in recs]
+    return {"checks": checks, "timing": timing, "zloss": check_ce_zloss()}
 
 
 def main() -> int:
@@ -512,39 +933,83 @@ def main() -> int:
                                     dtype=dtype)]
     times, lib = time_kernels(slice_inputs)
     bnd = bounds(B, N, N, S, D, 2, peak_flops, peak_bytes)
-    for k, (kms, pms) in times.items():
-        log(f"  {k:<16} kernel {kms:.3f} ms  plain {pms:.3f} ms  library "
-            f"{lib[k]:.3f} ms  bound {bnd[k]['bound_ms']:.4f} ms "
-            f"({bnd[k]['bound_by']})")
+    log_times("GPT-2 shape", times, lib, bnd)
+    del slice_inputs
+    qwen_flash = check_qwen_flash(peak_flops, peak_bytes)
+    for name_k, recs in qwen_flash["checks"].items():
+        checks[name_k] += recs
+    ce = check_ce(peak_bytes)
+    for name_k, recs in ce["checks"].items():
+        checks[name_k] += recs
+    torch.cuda.empty_cache()
 
-    phase("phase 4: reference run (flash against the plain core)")
-    reference_run()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase("phase 4: reference runs (flash against the plain core; fused "
+              "CE + remat against the plain loss)")
+        reference_run()
+        reference_run_ce(tmp)
 
-    phase("phase 5: main path (train_dist, GPT-2 small)")
-    summary = main_path(peak_flops)
+        phase("phase 5: main path of slice 1 (train_dist, GPT-2 small)")
+        gpt2 = main_path(peak_flops)
+        torch.cuda.empty_cache()
+
+        phase("phase 6: main path of slice 2 (train_dist, Qwen2.5-7B "
+              "widths, 4 layers)")
+        qwen = qwen_path(peak_flops, tmp)
+
+    # one block per path that runs the kernel: its launches beside the
+    # times measured at that path's shape; the row's own keys are those of
+    # this slice's path (Qwen2.5-7B widths)
+    qwen_name = f"qwen2.5-7b-{QWEN_LAYERS}-layers"
+
+    def max_err(k, case, kinds=("elementwise", "abs", "exact")):
+        return max(c["max_abs_err"] for c in checks[k]
+                   if c["case"] == case and c["tol_kind"] in kinds)
+
+    def block(k, run, timing, err, shape):
+        return dict(launches=run["launches"][k],
+                    launches_per_step=run["launches_per_step"][k],
+                    eval_launches=run["eval_launches"][k],
+                    max_abs_err=err, ms=timing["ms"],
+                    plain_ms=timing["plain_ms"],
+                    library_ms=timing["library_ms"],
+                    bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+                    flops=timing["flops"], bytes=timing["bytes"], shape=shape)
 
     rows = []
     for k, meta in KERNELS.items():
-        slice_checks = [c for c in checks[k] if c["case"] == "slice bf16"]
-        rows.append(dict(
-            name=k, route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"], launches=summary["launches"][k],
-            launches_per_step=summary["launches"][k] / TRAIN_ITERS,
-            max_abs_err=max(c["max_abs_err"] for c in slice_checks
-                            if c["tol_kind"] == "elementwise"),
-            rel_err=max(c["rel_err"] for c in slice_checks
-                        if c["rel_err"] is not None),
-            err_over_rms=max(c["err_over_rms"] for c in slice_checks
-                             if c["err_over_rms"] is not None),
-            tol=TOL_16, tol_rule="every element: |got - want| <= tol * "
-            "(rms(want) + |want|); 1e-4 in fp32, 1e-3 absolute on lse",
-            ms=times[k][0], plain_ms=times[k][1],
-            bound_ms=bnd[k]["bound_ms"], bound_by=bnd[k]["bound_by"],
-            flops=bnd[k]["flops"], bytes=bnd[k]["bytes"],
-            library_ms=lib[k], library_call=meta["library_call"],
-            shape=f"B={B} N=K={N} S={S} D={D} bf16 causal",
-            checks=checks[k]))
+        paths = {}
+        if k in FLASH:
+            gpt2_timing = dict(ms=times[k][0], plain_ms=times[k][1],
+                               library_ms=lib[k], **bnd[k])
+            paths["gpt2-small"] = block(
+                k, gpt2, gpt2_timing,
+                max_err(k, "slice bf16", ("elementwise",)),
+                f"B={B} N=K={N} S={S} D={D} bf16 causal")
+            timing = qwen_flash["timing"][k]
+            paths[qwen_name] = block(
+                k, qwen, timing, max_err(k, timing["shape"], ("elementwise",)),
+                timing["shape"])
+            tol_rule = ("every element: |got - want| <= tol * (rms(want) + "
+                        "|want|); 1e-4 in fp32, 1e-3 absolute on lse")
+            tol, extra = TOL_16, {}
+        else:
+            paths[qwen_name] = block(
+                k, qwen, ce["timing"]["fp32"][k],
+                max_err(k, "qwen fp32"),
+                f"T={QT} V={QV} fp32 logits (the path's dtype)")
+            tol_rule = ("gold bit-equal, lse within 1e-4 absolute, dlogits "
+                        "every element within tol * (rms(want) + |want|): "
+                        "1e-4 in fp32, 2e-2 in bf16/fp16")
+            tol, extra = TOL_FP32, {"bf16": ce["timing"]["bf16"][k]}
+        row = dict(name=k, route=meta["route"], source=meta["source"],
+                   replaces=meta["replaces"],
+                   library_call=meta["library_call"], **paths[qwen_name],
+                   tol=tol, tol_rule=tol_rule, paths=paths, **extra)
+        row["checks"] = checks[k]
+        rows.append(row)
     rows[0]["autograd_checks"] = auto
+    rows[3]["autograd_checks"] = ce["zloss"]
     log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)

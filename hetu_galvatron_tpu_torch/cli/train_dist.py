@@ -6,8 +6,11 @@ single-device branch: load config -> initialize -> plan -> init model ->
 optimizer -> data -> step loop with timing and loss log -> exit code. On a
 CUDA device with ``model.use_flash_attn`` every layer's attention core is
 the port's ``flash_sdpa`` (the CUDA kernels K1-K3), the counterpart of the
-JAX launcher choosing the Pallas kernel on a TPU. The run goes to the GPU
-unless ``device=cpu`` is given.
+JAX launcher choosing the Pallas kernel on a TPU; ``model.use_fused_ce``
+runs the loss through ``fused_ce_nll`` (K4/K5) and
+``parallel.global_checkpoint`` remats every layer under
+``model.remat_policy``. The run goes to the GPU unless ``device=cpu`` is
+given.
 
 Flags outside this slice raise with their name rather than being ignored.
 """
@@ -37,7 +40,6 @@ def unsupported_flags(args) -> list:
         "supervisor.auto_restart": args.supervisor.auto_restart,
         "logging.tensorboard_dir": args.logging.tensorboard_dir,
         "logging.wandb_project": args.logging.wandb_project,
-        "model.use_fused_ce": args.model.use_fused_ce,
     }
     return [name for name, value in flags.items() if value]
 
@@ -107,7 +109,16 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
     overrides = attention_overrides(cfg, device)
     if overrides:
         state.log("attention: flash kernels (CUDA K1-K3) on every layer")
+    if cfg.use_fused_ce:
+        state.log("fused cross-entropy: " + (
+            "CUDA K4/K5" if device.type == "cuda"
+            else "plain versions of K4/K5 (CPU)"))
+    if any(hpc.checkpoint_flags):
+        state.log(f"per-layer remat ({cfg.remat_policy}) on "
+                  f"{sum(hpc.checkpoint_flags)} of "
+                  f"{len(hpc.checkpoint_flags)} layers")
     loss_fn = make_loss_fn(cfg, compute_dtype=compute_dtype,
+                           remat_flags=hpc.checkpoint_flags,
                            layer_overrides=overrides)
     step = make_train_step(loss_fn, tx, chunks=hpc.chunks)
     opt_state = tx.init([t for _, t in named_leaves(params)])

@@ -39,6 +39,7 @@ class ModelArgs:
     tie_word_embeddings: bool = True
     use_flash_attn: bool = True
     use_fused_ce: bool = False
+    remat_policy: str = "full"
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
     norm_zero_centered: bool = False
@@ -56,6 +57,7 @@ class ModelArgs:
         "normalization": ("layernorm", "rmsnorm"),
         "norm_position": (None, "pre", "post"),
         "position_embedding_type": ("learned", "rope"),
+        "remat_policy": ("full", "dots", "dots_no_batch"),
     }
 
     @property
@@ -150,6 +152,8 @@ class CheckpointArgs:
 @dataclass
 class DataArgs:
     dataset: str = "random"
+    data_path: List[str] = field(default_factory=list)
+    split: str = "969,30,1"
     reset_position_ids: bool = False
     reset_attention_mask: bool = False
     eod_mask_loss: bool = False
@@ -202,7 +206,7 @@ class SupervisorArgs:
 # config naming them loads, the values are dropped
 JAX_ONLY_KEYS: Dict[str, frozenset] = {
     "model": frozenset({
-        "num_encoder_layers", "remat_policy", "untie_streams", "moe_topk", "moe_ffn_hidden_size",
+        "num_encoder_layers", "untie_streams", "moe_topk", "moe_ffn_hidden_size",
         "num_shared_experts", "moe_aux_loss_coeff", "moe_z_loss_coeff",
         "moe_router_dtype", "moe_layer_freq", "moe_dispatcher",
         "moe_capacity_factor", "moe_router_type",
@@ -219,8 +223,7 @@ JAX_ONLY_KEYS: Dict[str, frozenset] = {
     "ckpt": frozenset({"save_interval", "load_format", "async_save",
                        "distributed_checkpoint", "keep_last", "interval_s",
                        "snapshot_async", "save_timeout_s"}),
-    "data": frozenset({"data_path", "split", "tokenizer_type",
-                       "tokenizer_path", "num_workers"}),
+    "data": frozenset({"tokenizer_type", "tokenizer_path", "num_workers"}),
     "profile": frozenset({"profile_type", "profile_forward",
                           "save_profiled_memory", "profiler_dir",
                           "profile_iters", "trace_iters"}),

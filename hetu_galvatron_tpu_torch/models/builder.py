@@ -98,32 +98,48 @@ def forward_causal_lm(
     position_ids: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """tokens [B, S] -> fp32 logits [B, S, V]."""
+    """tokens [B, S] -> fp32 logits [B, S, V].
+
+    ``position_ids`` / ``segment_ids`` [B, S] are the packed-document fields
+    (reset_position_ids / reset_attention_mask): rope rows (or ``wpe`` rows)
+    are gathered per token and every layer masks attention across
+    documents. ``remat_flags[i]`` checkpoints layer i under
+    ``cfg.remat_policy`` (:func:`modules.remat`)."""
     M.check_model_supported(cfg)
-    if remat_flags is not None and any(remat_flags):
-        raise NotImplementedError("per-layer remat is not ported yet")
-    if position_ids is not None or segment_ids is not None:
-        raise NotImplementedError(
-            "packed documents (position_ids / segment_ids) are not ported "
-            "at the model level yet")
     S = tokens.shape[1]
     rope = None
     if cfg.position_embedding_type == "rope":
-        rope = M.rope_cos_sin(S, cfg.head_dim, cfg.rope_theta,
-                              device=tokens.device)
+        cos, sin = M.rope_cos_sin(S, cfg.head_dim, cfg.rope_theta,
+                                  device=tokens.device)
+        if position_ids is not None:
+            # packed samples: gather per-token rows -> [B, S, D/2]
+            cos, sin = cos[position_ids], sin[position_ids]
+        rope = (cos, sin)
     n = len(params["layers"])
-    # one child stream each for the embedding and every layer
-    rngs = M.split_rng(dropout_rng, n + 1) if (
-        cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0) \
-        else [None] * (n + 1)
+    # one child stream each for the embedding and every layer; a layer
+    # gets its seed and builds its generator inside itself, so a remat
+    # recompute draws the same masks as the first pass
+    use_dropout = cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0
+    seeds = M.split_seeds(dropout_rng if use_dropout else None, n + 1)
+    device = None if dropout_rng is None else dropout_rng.device
     x = M.apply_embedding(params["embed"], tokens, cfg,
-                          compute_dtype=compute_dtype, dropout_rng=rngs[n])
+                          compute_dtype=compute_dtype,
+                          dropout_rng=M.generator_from_seed(seeds[n], device),
+                          position_ids=position_ids)
     for i, lp in enumerate(params["layers"]):
         kwargs: Dict[str, Any] = dict(rope=rope, compute_dtype=compute_dtype,
-                                      dropout_rng=rngs[i])
+                                      segment_ids=segment_ids)
         if layer_overrides and i in layer_overrides:
             kwargs.update(layer_overrides[i])
-        x = M.apply_decoder_layer(lp, x, cfg, **kwargs)
+
+        def layer(p, h, seed=seeds[i], kw=kwargs):
+            return M.apply_decoder_layer(
+                p, h, cfg, dropout_rng=M.generator_from_seed(seed, device),
+                **kw)
+
+        if remat_flags is not None and remat_flags[i]:
+            layer = M.remat(layer, cfg)
+        x = layer(lp, x)
     x = M.apply_norm(params["prenorm"], x, cfg)
     return M.apply_lm_head(params["head"], x, cfg,
                            wte=params["embed"]["wte"],
@@ -140,8 +156,9 @@ def causal_lm_loss(
     layer_overrides: Optional[Dict[int, Dict[str, Any]]] = None,
     fused_ce: Optional[bool] = None,
 ) -> torch.Tensor:
-    """batch: tokens [B,S], labels [B,S], optional loss_mask [B,S] and
-    dropout_rng -> scalar loss."""
+    """batch: tokens [B,S], labels [B,S], optional loss_mask, position_ids
+    and segment_ids [B,S] and dropout_rng -> scalar loss. ``fused_ce``
+    overrides ``cfg.use_fused_ce`` (K4/K5 through ``fused_ce_nll``)."""
     fused = cfg.use_fused_ce if fused_ce is None else fused_ce
     logits = forward_causal_lm(
         params, batch["tokens"], cfg, compute_dtype=compute_dtype,

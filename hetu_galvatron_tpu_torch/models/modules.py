@@ -8,21 +8,29 @@ are fp32 tensors; compute casts down to the run's compute dtype.
 
 The attention core is swappable through ``sdpa_fn``: :func:`xla_sdpa` is the
 plain dense core and ``ops.flash_attention.flash_sdpa`` the CUDA kernels.
+``cross_entropy_loss(fused=True)`` runs the per-token NLL through
+``ops.cross_entropy.fused_ce_nll`` (the CUDA kernels K4/K5); :func:`remat`
+is per-layer activation checkpointing with the JAX package's policies.
 
 Outside this slice, and raising rather than ignored: post-norm (bert) and
-encoder-decoder (t5) blocks, MoE layers, rope scaling and multimodal rope,
-per-layer remat, and the fused cross-entropy kernels (K4/K5).
+encoder-decoder (t5) blocks, MoE layers, rope scaling and multimodal rope.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from hetu_galvatron_tpu_torch.core.args_schema import ModelArgs
+from hetu_galvatron_tpu_torch.ops.cross_entropy import fused_ce_nll
 
 Params = Dict[str, Any]
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -102,11 +110,15 @@ def rope_cos_sin(seq_len: int, head_dim: int, theta: float,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x [B, S, N, D], cos/sin [S, D/2]; rotate-half (llama) convention."""
+    """x [B, S, N, D]; rotate-half (llama) convention. cos/sin are [S, D/2]
+    (positions in order) or [B, S, D/2] (rows gathered per token: packed
+    samples with reset_position_ids)."""
     d2 = x.shape[-1] // 2
     x1, x2 = x[..., :d2], x[..., d2:]
-    cos = cos[None, :, None, :]
-    sin = sin[None, :, None, :]
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
 
@@ -235,13 +247,70 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelArgs,
 # ---------------------------------------------------------------------------
 
 
+def split_seeds(rng: Optional[torch.Generator],
+                n: int) -> List[Optional[int]]:
+    """n child seeds drawn from ``rng`` (None gives n Nones)."""
+    if rng is None:
+        return [None] * n
+    return torch.randint(0, 2 ** 62, (n,), generator=rng,
+                         device=rng.device).tolist()
+
+
+def generator_from_seed(seed: Optional[int], device
+                        ) -> Optional[torch.Generator]:
+    """A fresh generator for one child stream (None stays None)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def split_rng(rng: Optional[torch.Generator], n: int):
     """n child generators seeded from ``rng`` (None stays None)."""
     if rng is None:
         return [None] * n
-    seeds = torch.randint(0, 2 ** 62, (n,), generator=rng,
-                          device=rng.device).tolist()
-    return [torch.Generator(device=rng.device).manual_seed(s) for s in seeds]
+    return [generator_from_seed(s, rng.device) for s in split_seeds(rng, n)]
+
+
+# matmul outputs the selective policies keep for the backward: "dots" is
+# JAX's checkpoint_dots (every dot_general), "dots_no_batch" its
+# checkpoint_dots_with_no_batch_dims (no batched products, so the attention
+# core's einsums are recomputed)
+_SAVED_DOTS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default),
+}
+
+
+def remat(fn: Callable, cfg: ModelArgs) -> Callable:
+    """Per-layer activation checkpointing with ``cfg.remat_policy``
+    (JAX ``remat``): "full" recomputes the whole layer in the backward;
+    "dots" / "dots_no_batch" keep the outputs of the matrix products listed
+    in ``_SAVED_DOTS`` and recompute the rest. Under ``no_grad`` (eval) the
+    layer simply runs. The wrapped function must draw any randomness from
+    generators it creates inside itself (``generator_from_seed``): the
+    recompute restores the global RNG state only, so an explicit generator
+    advanced by the first pass would draw a different mask."""
+    policy = cfg.remat_policy
+    if policy == "full":
+        context_fn = None
+    elif policy in _SAVED_DOTS:
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       list(_SAVED_DOTS[policy]))
+    else:
+        raise ValueError(f"unknown remat_policy {policy!r} "
+                         "(full | dots | dots_no_batch)")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    return wrapped
 
 
 def apply_decoder_layer(
@@ -282,11 +351,15 @@ def apply_decoder_layer(
 
 def apply_embedding(p: Params, tokens: torch.Tensor, cfg: ModelArgs,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    dropout_rng: Optional[torch.Generator] = None
+                    dropout_rng: Optional[torch.Generator] = None,
+                    position_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     x = p["wte"][tokens]
     if "wpe" in p:
-        x = x + p["wpe"][:tokens.shape[1]][None, :, :]
+        if position_ids is not None:  # packed samples: per-token positions
+            x = x + p["wpe"][position_ids]
+        else:
+            x = x + p["wpe"][:tokens.shape[1]][None, :, :]
     x = dropout(x, cfg.hidden_dropout, dropout_rng)
     return x.to(compute_dtype)
 
@@ -307,19 +380,22 @@ def apply_lm_head(p: Params, x: torch.Tensor, cfg: ModelArgs,
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        loss_mask: Optional[torch.Tensor] = None,
-                       z_loss: float = 0.0, fused=False) -> torch.Tensor:
-    """Stable mean CE over masked tokens, fp32 throughout."""
+                       z_loss: float = 0.0, fused: bool = False
+                       ) -> torch.Tensor:
+    """Stable mean CE over masked tokens, fp32 throughout. ``fused=True``
+    takes the per-token NLL from ``fused_ce_nll`` (K4/K5 on a CUDA device,
+    their plain versions on the CPU); mask and mean stay plain. (The JAX
+    function also takes a vocab-parallel NLL callable; that waits for the
+    SPMD slice.)"""
     if fused:
-        raise NotImplementedError(
-            "fused cross-entropy needs kernels K4/K5 "
-            "(ops/pallas/cross_entropy.py::_ce_fwd_kernel/_ce_bwd_kernel), "
-            "which are not ported yet; set model.use_fused_ce=false")
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
-    if z_loss:
-        nll = nll + z_loss * lse.square()
+        nll = fused_ce_nll(logits, labels, z_loss=z_loss)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = lse - gold
+        if z_loss:
+            nll = nll + z_loss * lse.square()
     if loss_mask is None:
         return nll.mean()
     loss_mask = loss_mask.float()

@@ -9,7 +9,8 @@ reuses it and an edited source builds anew.
 
 Pointers and the CUDA stream cross as ``ctypes.c_void_p``; every launch
 function returns ``cudaGetLastError()`` after its launch, and
-:func:`check_launch` raises when it is not 0.
+:func:`check_launch` raises when it is not 0 and otherwise counts the launch
+in :data:`launch_counts`, the one registry of kernel launches.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -31,17 +32,21 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-# dtype codes of csrc/flash_common.cuh
+# dtype codes of csrc/flash_common.cuh (shared by every kernel)
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1, "torch.float16": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U32 = ctypes.c_uint32
 _F = ctypes.c_float
-# argtypes of every exported launch function (csrc/*.cu): dtype code,
-# input pointers, segment ids, output pointers, dims, strides, causal,
-# scale, dropout on/seed/threshold/keep_prob, stream
+_LL = ctypes.c_longlong
+# argtypes of every exported launch function (csrc/*.cu). Flash: dtype
+# code, input pointers, segment ids, output pointers, dims, strides, causal,
+# scale, dropout on/seed/threshold/keep_prob, stream. Cross-entropy: dtype
+# code, input pointers, output pointers, T, V, row strides, stream.
 SIGNATURES = {
+    "galv_ce_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _LL, _P],
+    "galv_ce_bwd": [_I, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P],
     "galv_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _U32,
                        _U32, _F, _P],
     "galv_flash_bwd_dkdv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -49,6 +54,11 @@ SIGNATURES = {
     "galv_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F,
                           _I, _U32, _U32, _F, _P],
 }
+
+# kernel launches since the last reset, by launch function without its
+# ``galv_`` prefix (a caller resets before the run it counts)
+launch_counts: Dict[str, int] = {name[len("galv_"):]: 0
+                                 for name in SIGNATURES}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -139,10 +149,17 @@ def load_library(rebuild: bool = False) -> ctypes.CDLL:
     return _lib
 
 
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
 def check_launch(name: str, code: int) -> None:
+    """Raises on a failed launch of kernel ``name``, else counts it."""
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {code}")
+    launch_counts[name] += 1
 
 
 def int64_array(values) -> ctypes.Array:

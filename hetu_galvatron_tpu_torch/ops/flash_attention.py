@@ -20,7 +20,7 @@ runs and there is no dense fallback for untileable lengths.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -29,17 +29,6 @@ from hetu_galvatron_tpu_torch.ops import _build
 NEG_INF = float(torch.finfo(torch.float32).min)
 MAX_HEAD_DIM = 128
 _U32 = 0xFFFFFFFF
-
-# kernel launches per wrapper since the last reset (compare launches made
-# by chip_smoke.py's checks are excluded by resetting before the main path)
-launch_counts: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkdv": 0,
-                                 "flash_bwd_dq": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-
 
 # ---------------------------------------------------------------------------
 # dropout keep-mask (bit-exact with the JAX keep_mask)
@@ -251,7 +240,6 @@ def _launch(name, inputs, outputs, segments, dropout_seed, *, causal,
     # ``seg`` may be freed now: the caching allocator reuses its memory
     # only after the work enqueued on this stream
     _build.check_launch(name, code)
-    launch_counts[name] += 1
 
 
 def flash_attention_hmajor(q, k, v, segments=None, dropout_seed=None, *,

@@ -1,14 +1,19 @@
-"""Synthetic data pipeline.
+"""Data pipeline: synthetic tokens and the indexed corpus.
 
 Counterpart of ``hetu_galvatron_tpu/runtime/dataloader.py``: the same
-deterministic random-token dataset and the same numpy batches for the same
-seed and position (``tokens``, ``labels``, ``loss_mask``). The indexed
-corpus, packed documents and the bert/t5 batch shapes are not ported yet
-and raise.
+deterministic random-token dataset, the indexed corpus of
+``data/indexed_dataset.py`` split into train/valid/test document ranges,
+end-of-document loss masking and packed-document fields
+(``position_ids`` / ``segment_ids``), giving the same numpy batches for the
+same seed and position. Not ported yet, and raising: ``s3://`` corpus
+prefixes, the bert/t5 batch shapes and the zigzag cp layout.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import sys
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -66,38 +71,143 @@ def get_data_iterator(args: CoreArgs, *,
                       global_batch_size: Optional[int] = None,
                       split: str = "train"
                       ) -> Iterator[Dict[str, np.ndarray]]:
-    """One split's batch iterator; the synthetic dataset draws each split
-    from a disjoint seed."""
+    """One split's batch iterator. Indexed corpora take the split's document
+    range by the ``data.split`` ratios and iterate evaluation splits
+    unshuffled; the synthetic dataset draws each split from a disjoint
+    seed."""
     gbs = global_batch_size or args.parallel.global_train_batch_size
     data = args.data
-    if data.dataset == "indexed":
-        raise NotImplementedError(
-            "data.dataset=indexed (the mmap corpus) is not ported yet; use "
-            "data.dataset=random")
-    if data.dataset != "random":
-        raise ValueError(f"unknown dataset kind {data.dataset}")
-    if data.reset_position_ids or data.reset_attention_mask \
-            or data.eod_mask_loss:
-        raise NotImplementedError(
-            "packed documents (reset_position_ids / reset_attention_mask / "
-            "eod_mask_loss) are not ported yet")
     if args.model.model_type in ("bert", "t5"):
         raise NotImplementedError(
             f"{args.model.model_type} batches are not ported yet")
-    return synthetic_batches(args.model, gbs,
-                             seed=args.train.seed + 101 * _SPLIT_INDEX[split])
+    meta: Dict = {}
+    split_idx = _SPLIT_INDEX[split]
+    if data.dataset == "random":
+        it = synthetic_batches(args.model, gbs,
+                               seed=args.train.seed + 101 * split_idx)
+    elif data.dataset == "indexed":
+        from hetu_galvatron_tpu_torch.data.indexed_dataset import (
+            indexed_batches,
+        )
+
+        paths = ([data.data_path] if isinstance(data.data_path, str)
+                 else list(data.data_path))
+        if not paths:
+            raise ValueError("data.dataset=indexed requires data.data_path")
+        remote = [p for p in paths if str(p).startswith("s3://")]
+        if remote:
+            raise NotImplementedError(
+                f"s3:// corpus prefixes {remote} (object_store."
+                "localize_prefix) are not ported yet; download the corpus "
+                "and point data.data_path at the local prefix")
+        meta = corpus_meta(paths)
+        if meta.get("vocab_size", 0) > args.model.padded_vocab_size:
+            raise ValueError(
+                f"corpus tokenizer vocab {meta['vocab_size']} exceeds model "
+                f"padded vocab {args.model.padded_vocab_size}")
+        it = indexed_batches(paths, args.model.seq_length, gbs,
+                             seed=args.train.seed, split=data.split,
+                             split_index=split_idx,
+                             shuffle=split == "train")
+        if data.eod_mask_loss and meta.get("eod_id") is not None:
+            it = eod_masked_batches(it, meta["eod_id"])
+    else:
+        raise ValueError(f"unknown dataset kind {data.dataset}")
+    if data.reset_position_ids or data.reset_attention_mask:
+        if meta.get("eod_id") is None:
+            raise ValueError(
+                "reset_position_ids/reset_attention_mask need document "
+                "boundaries: use data.dataset=indexed with an eod-emitting "
+                "tokenizer (preprocess_data writes eod_id to the sidecar)")
+        it = packed_doc_batches(
+            it, meta["eod_id"],
+            reset_position_ids=data.reset_position_ids,
+            reset_attention_mask=data.reset_attention_mask)
+    return it
 
 
 def get_train_valid_test_data_iterators(
         args: CoreArgs, *, global_batch_size: Optional[int] = None):
     """(train, valid, test) iterators; the eval iterators exist only when
-    train.eval_interval and eval_iters are both set."""
+    train.eval_interval and eval_iters are both set. An eval split too
+    small for one sample is dropped with a warning instead of failing the
+    run."""
     train_it = get_data_iterator(args, global_batch_size=global_batch_size,
                                  split="train")
     valid_it = test_it = None
     if args.train.eval_interval and args.train.eval_iters:
-        valid_it = get_data_iterator(
-            args, global_batch_size=global_batch_size, split="valid")
-        test_it = get_data_iterator(
-            args, global_batch_size=global_batch_size, split="test")
+        its = []
+        for name in ("valid", "test"):
+            try:
+                its.append(get_data_iterator(
+                    args, global_batch_size=global_batch_size, split=name))
+            except ValueError as e:
+                print(f"warning: {name} eval disabled: {e}", file=sys.stderr)
+                its.append(None)
+        valid_it, test_it = its
     return train_it, valid_it, test_it
+
+
+def corpus_meta(paths) -> Dict:
+    """The ``<prefix>.meta.json`` sidecar (tokenizer geometry: vocab_size,
+    eod_id) of the corpora; blended corpora must agree. {} when absent."""
+    paths = [paths] if isinstance(paths, str) else list(paths)
+    metas = []
+    for p in paths:
+        if os.path.exists(p + ".meta.json"):
+            with open(p + ".meta.json") as f:
+                metas.append(json.load(f))
+    if not metas:
+        return {}
+    first = metas[0]
+    for m in metas[1:]:
+        if (m.get("vocab_size"), m.get("eod_id")) != (
+                first.get("vocab_size"), first.get("eod_id")):
+            raise ValueError(
+                "blended corpora were tokenized with different tokenizers: "
+                f"{metas}")
+    return first
+
+
+def eod_masked_batches(it: Iterator[Dict[str, np.ndarray]], eod_id: int
+                       ) -> Iterator[Dict[str, np.ndarray]]:
+    """Zero the loss where the input token is end-of-document (it would
+    learn to predict the next document's first token); predicting eod
+    itself stays in the loss."""
+    for batch in it:
+        batch = dict(batch)
+        batch["loss_mask"] = (batch["loss_mask"]
+                              * (batch["tokens"] != eod_id))
+        yield batch
+
+
+def packed_doc_fields(tokens: np.ndarray, eod_id: int, *,
+                      reset_position_ids: bool, reset_attention_mask: bool
+                      ) -> Dict[str, np.ndarray]:
+    """Per-token ``position_ids`` / ``segment_ids`` of packed samples: a
+    document starts after each eod token, where positions restart at 0 and
+    the segment id steps up."""
+    doc_starts = np.zeros_like(tokens, dtype=np.int64)
+    doc_starts[:, 1:] = (tokens[:, :-1] == eod_id)
+    segments = np.cumsum(doc_starts, axis=1)
+    out: Dict[str, np.ndarray] = {}
+    if reset_attention_mask:
+        out["segment_ids"] = segments.astype(np.int32)
+    if reset_position_ids:
+        pos = np.arange(tokens.shape[1], dtype=np.int64)[None, :]
+        starts = np.where(doc_starts.astype(bool), pos, 0)
+        doc_start_pos = np.maximum.accumulate(starts, axis=1)
+        out["position_ids"] = (pos - doc_start_pos).astype(np.int32)
+    return out
+
+
+def packed_doc_batches(it: Iterator[Dict[str, np.ndarray]], eod_id: int, *,
+                       reset_position_ids: bool, reset_attention_mask: bool
+                       ) -> Iterator[Dict[str, np.ndarray]]:
+    for batch in it:
+        batch = dict(batch)
+        batch.update(packed_doc_fields(
+            batch["tokens"], eod_id,
+            reset_position_ids=reset_position_ids,
+            reset_attention_mask=reset_attention_mask))
+        yield batch

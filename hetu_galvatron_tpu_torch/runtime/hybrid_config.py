@@ -2,15 +2,19 @@
 
 Counterpart of ``hetu_galvatron_tpu/runtime/hybrid_config.py``, for the one
 plan this slice of the port runs: one device, no pipeline, no tensor or
-context parallelism. Anything wider (world > 1, pp > 1, tp/cp/ulysses/ep,
-ZeRO-3, a searched JSON plan) raises and names the later slice (the SPMD
-plans on NCCL and the pipeline engines of ROADMAP.md queue 1).
+context parallelism, with per-layer activation checkpointing
+(``parallel.global_checkpoint`` sets it on every layer, as the JAX plan's
+``LayerStrategy.checkpoint``). Anything wider (world > 1, pp > 1,
+tp/cp/ulysses/ep, ZeRO-3, a searched JSON plan) raises and names the later
+slice (the SPMD plans on NCCL and the pipeline engines of ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import List
 
 from hetu_galvatron_tpu_torch.core.args_schema import CoreArgs
 
@@ -23,10 +27,12 @@ class HybridParallelConfig:
     chunks: int
     global_bsz: int
     world_size: int
+    checkpoint_flags: List[bool]  # per layer: remat it
 
     def describe(self) -> str:
         return (f"pp{self.pp_deg} chunks{self.chunks} bsz{self.global_bsz} "
-                f"world{self.world_size} (single device)")
+                f"world{self.world_size} remat {sum(self.checkpoint_flags)}/"
+                f"{len(self.checkpoint_flags)} layers (single device)")
 
 
 def resolve_chunks(chunks: int, pp_deg: int, global_bsz: int,
@@ -64,9 +70,6 @@ def check_single_device(args: CoreArgs, world_size: int) -> None:
             raise NotImplementedError(f"parallel.{name}={deg} {LATER}")
     if par.use_ulysses or par.sdp:
         raise NotImplementedError(f"ulysses / sdp (ZeRO-3) {LATER}")
-    if par.global_checkpoint:
-        raise NotImplementedError(
-            "parallel.global_checkpoint (per-layer remat) is not ported yet")
 
 
 def get_hybrid_parallel_config(args: CoreArgs,
@@ -80,4 +83,6 @@ def get_hybrid_parallel_config(args: CoreArgs,
             f"chunks={chunks}")
     return HybridParallelConfig(pp_deg=1, chunks=chunks,
                                 global_bsz=par.global_train_batch_size,
-                                world_size=world_size)
+                                world_size=world_size,
+                                checkpoint_flags=[bool(par.global_checkpoint)]
+                                * args.model.num_hidden_layers)

@@ -12,6 +12,7 @@ import torch
 from hetu_galvatron_tpu.runtime import hybrid_config as JH
 from hetu_galvatron_tpu_torch.cli import train_dist
 from hetu_galvatron_tpu_torch.core.arguments import load_config
+from hetu_galvatron_tpu_torch.ops import _build
 from hetu_galvatron_tpu_torch.ops import flash_attention as TF
 from hetu_galvatron_tpu_torch.runtime import hybrid_config as TH
 from hetu_galvatron_tpu_torch.runtime import initialize as TI
@@ -27,13 +28,13 @@ TINY = ["device=cpu", "model.hidden_size=64", "model.num_hidden_layers=2",
 
 
 def test_torch_train_dist_cpu_smoke(capsys):
-    TF.reset_launch_counts()
+    _build.reset_launch_counts()
     assert train_dist.main([GPT2, *TINY]) == 0
     out = capsys.readouterr().out
     assert "training done: 3 iters" in out
     assert out.count("iter ") >= 3
     # on the CPU the plain attention core runs: no kernel launches
-    assert sum(TF.launch_counts.values()) == 0
+    assert sum(_build.launch_counts.values()) == 0
 
 
 def test_torch_train_dist_returns_finite_decreasing_losses():
@@ -74,7 +75,7 @@ def test_torch_train_dist_with_dropout_runs_on_cpu():
     "rerun.enable=true", "chaos.enable=true", "observability.enabled=true",
     "tp_overlap.enable=true", "parallel.hier_dp=true",
     "train.rampup_batch_size=[2,2,8]", "supervisor.auto_restart=true",
-    "model.use_fused_ce=true", "parallel.global_tp_deg=2",
+    "parallel.global_tp_deg=2",
     "parallel.num_devices=2", "parallel.num_processes=2",
     "parallel.config_mode=json", "parallel.sdp=1",
 ])
@@ -125,3 +126,87 @@ def test_torch_hybrid_config_single_device_plan():
     with pytest.raises(ValueError, match="divisible"):
         TH.get_hybrid_parallel_config(
             load_config(GPT2, TINY + ["parallel.chunks=3"]), 1)
+
+
+QWEN_YAML = os.path.join(os.path.dirname(__file__), "..",
+                         "hetu_galvatron_tpu", "models", "configs",
+                         "qwen2.5-7b.yaml")
+EOD = 151643 % 512  # Qwen's <|endoftext|>, folded into the tiny vocab
+
+
+def _qwen_path_overrides(prefix):
+    """The slice's Qwen2.5 path (fused CE, remat on every layer, packed
+    indexed corpus with eod masking) at a tiny width, on the CPU in fp32."""
+    return ["model.hidden_size=112", "model.num_hidden_layers=2",
+            "model.num_attention_heads=7", "model.num_key_value_heads=1",
+            "model.ffn_hidden_size=160", "model.vocab_size=512",
+            "model.seq_length=32", "model.max_position_embeddings=64",
+            "model.use_fused_ce=true", "parallel.global_checkpoint=1",
+            "parallel.mixed_precision=fp32",
+            "parallel.global_train_batch_size=2", "train.train_iters=3",
+            "train.lr=1e-4", "train.adam_eps=1e-5", "data.dataset=indexed",
+            f"data.data_path=[{prefix}]", "data.split=98,1,1",
+            "data.reset_position_ids=true", "data.reset_attention_mask=true",
+            "data.eod_mask_loss=true"]
+
+
+def test_torch_train_dist_qwen_path_matches_the_jax_trainer(tmp_path,
+                                                           monkeypatch):
+    """Three steps of ``train_dist.train(device=cpu)`` against three steps
+    of the JAX trainer: the same weights (moved over by params_from_jax),
+    the same corpus (written by the JAX writer, read by each package's
+    loader), remat on both layers and fused CE (the JAX Pallas kernels in
+    interpret mode, the port's plain K4/K5). Losses and every parameter
+    agree within 1e-5 relative, with atol 1e-7 (3e-4 of the three steps'
+    update at lr 1e-4) for entries near zero, where Adam's m / sqrt(v)
+    amplifies the summation-order noise of a cancelling gradient; only
+    summation order differs."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    from hetu_galvatron_tpu.core import arguments as JA
+    from hetu_galvatron_tpu.data.indexed_dataset import write_indexed_dataset
+    from hetu_galvatron_tpu.models import builder as JB
+    from hetu_galvatron_tpu.runtime import dataloader as JD
+    from hetu_galvatron_tpu.runtime import optimizer as JO
+    from hetu_galvatron_tpu.runtime import trainer as JT
+    from hetu_galvatron_tpu_torch.models import builder as TB
+    from hetu_galvatron_tpu_torch.runtime.checkpoint import params_from_jax
+
+    rng = np.random.default_rng(0)
+    prefix = str(tmp_path / "corpus")
+    write_indexed_dataset(prefix, [
+        np.append(rng.integers(0, EOD, rng.integers(4, 40)), EOD)
+        for _ in range(300)])
+    with open(prefix + ".meta.json", "w") as f:
+        json.dump({"vocab_size": 512, "eod_id": EOD}, f)
+    over = _qwen_path_overrides(prefix)
+    jargs = JA.load_config(QWEN_YAML, over)
+    jparams, _ = JB.init_causal_lm(jax.random.key(5), jargs.model)
+    npy = jax.tree.map(np.asarray, jparams)
+    monkeypatch.setattr(TB, "init_causal_lm",
+                        lambda cfg, seed, device: params_from_jax(npy))
+    out = train_dist.train(load_config(QWEN_YAML, ["device=cpu", *over]))
+
+    L = jargs.model.num_hidden_layers
+    jtx = JO.make_optimizer(jargs.train)
+    jstep = jax.jit(JT.make_train_step(
+        JT.make_loss_fn(jargs.model, compute_dtype=jnp.float32,
+                        remat_flags=[True] * L), jtx))
+    jopt = jtx.init(jparams)
+    jit = JD.get_data_iterator(jargs, split="train")
+    jlosses = []
+    for _ in range(3):
+        batch = jax.tree.map(jnp.asarray, next(jit))
+        assert {"position_ids", "segment_ids"} <= set(batch)
+        jparams, jopt, jm = jstep(jparams, jopt, batch)
+        jlosses.append(float(jm["loss"]))
+    np.testing.assert_allclose(out["losses"], jlosses, rtol=1e-5)
+    want = dict(TB.named_leaves(params_from_jax(
+        jax.tree.map(np.asarray, jparams))))
+    for name, t in TB.named_leaves(out["params"]):
+        np.testing.assert_allclose(t.detach().numpy(),
+                                   want[name].detach().numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)

@@ -155,9 +155,16 @@ def test_torch_cross_entropy_matches_jax():
                 jnp.asarray(logits), jnp.asarray(labels),
                 None if m is None else jnp.asarray(m), z_loss=z)
             _close(got, want)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        TM.cross_entropy_loss(torch.from_numpy(logits),
-                              torch.from_numpy(labels).long(), fused=True)
+            # the fused route (plain K4/K5 here) against the JAX Pallas
+            # kernels in interpret mode
+            got = TM.cross_entropy_loss(
+                torch.from_numpy(logits), torch.from_numpy(labels).long(),
+                None if m is None else torch.from_numpy(m), z_loss=z,
+                fused=True)
+            want = JM.cross_entropy_loss(
+                jnp.asarray(logits), jnp.asarray(labels),
+                None if m is None else jnp.asarray(m), z_loss=z, fused=True)
+            _close(got, want)
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
@@ -238,11 +245,10 @@ def test_torch_model_refuses_settings_outside_the_slice():
     cfg = ModelArgs(**GPT)
     params = TB.init_causal_lm(cfg, seed=0)
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="remat"):
-        TB.forward_causal_lm(params, tokens, cfg, remat_flags=[True, False])
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        TB.forward_causal_lm(params, tokens, cfg,
-                             segment_ids=torch.zeros_like(tokens))
+    # per-layer remat and packed documents run now (parity in
+    # test_torch_causal_lm_packed_remat_fused_ce_matches_jax)
+    TB.forward_causal_lm(params, tokens, cfg, remat_flags=[True, False],
+                         segment_ids=torch.zeros_like(tokens))
     for bad in (dict(num_experts=4), dict(model_type="bert"),
                 dict(model_type="t5"),
                 dict(rope_scaling={"rope_type": "linear", "factor": 2.0})):
@@ -264,3 +270,109 @@ def test_torch_hidden_dropout_uses_the_explicit_generator():
     # eval semantics: no generator, no dropout
     torch.testing.assert_close(run(None), TB.forward_causal_lm(
         params, tokens, ModelArgs(**GPT), **T32), rtol=0, atol=0)
+
+
+# tiny Qwen2.5 shape: GQA 7:1, head_dim 16, qkv bias, untied head, rope
+# theta 1e6, SwiGLU, rmsnorm, vocab 512
+QWEN = dict(model_type="llama", hidden_size=112, num_hidden_layers=2,
+            num_attention_heads=7, num_key_value_heads=1, ffn_hidden_size=160,
+            vocab_size=512, max_position_embeddings=64, seq_length=32,
+            hidden_act="swiglu", normalization="rmsnorm",
+            layernorm_epsilon=1e-6, position_embedding_type="rope",
+            rope_theta=1e6, tie_word_embeddings=False, add_bias_linear=False,
+            add_qkv_bias=True)
+FAMILIES["qwen"] = QWEN
+EOD = 7
+
+
+def _packed(seed, vocab, B=2, S=32):
+    """Tokens with eod-separated documents, their packed fields (the
+    loader's packed_doc_fields, JAX's) and an eod loss mask."""
+    from hetu_galvatron_tpu.runtime.dataloader import packed_doc_fields
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(8, vocab, (B, S + 1)).astype(np.int32)
+    for b, cuts in enumerate(([5, 17, 18], [11, 26])):
+        tokens[b, cuts] = EOD
+    fields = packed_doc_fields(tokens[:, :-1], EOD, reset_position_ids=True,
+                               reset_attention_mask=True)
+    assert fields["segment_ids"].max() >= 2
+    mask = (tokens[:, :-1] != EOD).astype(np.float32)
+    return tokens, fields, mask
+
+
+def test_torch_rope_and_positions_gather_per_token_like_jax():
+    """Gathered [B, S, D/2] rope tables and wpe rows picked by
+    position_ids, as for packed samples."""
+    _, fields, _ = _packed(0, 120)
+    pos = fields["position_ids"]
+    jcfg, tcfg, npy, tp = _setup("llama")
+    cos, sin = TM.rope_cos_sin(32, tcfg.head_dim, tcfg.rope_theta)
+    jcos, jsin = JM.rope_cos_sin(32, jcfg.head_dim, jcfg.rope_theta)
+    x = _x((2, 32, 4, 16))
+    pt = torch.from_numpy(pos).long()
+    _close(TM.apply_rope(torch.from_numpy(x), cos[pt], sin[pt]),
+           JM.apply_rope(jnp.asarray(x), jcos[pos], jsin[pos]))
+    jcfg, tcfg, npy, tp = _setup("gpt")
+    tokens = np.random.default_rng(1).integers(0, 128, (2, 32)).astype(
+        np.int32)
+    _close(TM.apply_embedding(tp["embed"], torch.from_numpy(tokens).long(),
+                              tcfg, position_ids=pt, **T32),
+           JM.apply_embedding(npy["embed"], jnp.asarray(tokens), jcfg,
+                              position_ids=jnp.asarray(pos), **F32))
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch"])
+def test_torch_causal_lm_packed_remat_fused_ce_matches_jax(policy):
+    """The slice's model path on the tiny Qwen shape: packed documents
+    (position_ids + segment_ids), remat flags [True, False] under each
+    policy, fused CE (plain K4/K5 here; the JAX Pallas kernels in interpret
+    mode) and an eod loss mask; loss and every gradient against JAX."""
+    jcfg = JModelArgs(**QWEN, remat_policy=policy, use_fused_ce=True)
+    tcfg = ModelArgs(**QWEN, remat_policy=policy, use_fused_ce=True)
+    _, _, npy, tp = _setup("qwen", seed=6)
+    tokens, fields, mask = _packed(8, 512)
+    jbatch = {"tokens": jnp.asarray(tokens[:, :-1]),
+              "labels": jnp.asarray(tokens[:, 1:]),
+              "loss_mask": jnp.asarray(mask),
+              **{k: jnp.asarray(v) for k, v in fields.items()}}
+    tbatch = {"tokens": torch.from_numpy(tokens[:, :-1]).long(),
+              "labels": torch.from_numpy(tokens[:, 1:]).long(),
+              "loss_mask": torch.from_numpy(mask),
+              **{k: torch.from_numpy(v).long() for k, v in fields.items()}}
+    flags = [True, False]
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: JB.causal_lm_loss(p, jbatch, jcfg, remat_flags=flags,
+                                    **F32))(jax.tree.map(jnp.asarray, npy))
+    tloss = TB.causal_lm_loss(tp, tbatch, tcfg, remat_flags=flags, **T32)
+    _close(tloss, jloss)
+    names = [n for n, _ in TB.named_leaves(tp)]
+    tgrads = torch.autograd.grad(tloss, [t for _, t in TB.named_leaves(tp)])
+    jflat = dict(TB.named_leaves(params_from_jax(
+        jax.tree.map(np.asarray, jgrads))))
+    for name, g in zip(names, tgrads):
+        np.testing.assert_allclose(g.numpy(), jflat[name].detach().numpy(),
+                                   err_msg=name, **GRAD_TOL)
+    # the packing changes the answer: without segment ids the loss moves
+    plain = {k: v for k, v in tbatch.items()
+             if k not in ("segment_ids", "position_ids")}
+    with torch.no_grad():
+        unpacked = float(TB.causal_lm_loss(tp, plain, tcfg, **T32))
+    assert abs(unpacked - float(tloss.detach())) > 1e-4
+
+
+def test_torch_weight_bridge_round_trips_a_qwen_tree():
+    """bqkv, GQA 7:1 (wqkv is [112, (7 + 2) * 16]) and an untied head
+    cross in both directions unchanged."""
+    _, tcfg, npy, tp = _setup("qwen")
+    attn = tp["layers"][0]["attn"]
+    assert attn["wqkv"].shape == (112, 144) and attn["bqkv"].shape == (144,)
+    assert tp["head"]["whead"].shape == (112, 512)
+    back = params_to_jax(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(npy)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(npy)):
+        np.testing.assert_array_equal(a, b)
+    again = params_from_jax(back)
+    for (n1, a), (n2, b) in zip(TB.named_leaves(again),
+                                TB.named_leaves(tp)):
+        assert n1 == n2 and torch.equal(a, b)

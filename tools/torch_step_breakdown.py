@@ -1,20 +1,34 @@
 """Where one training step of the PyTorch/CUDA port spends its GPU time.
 
-    python3 tools/torch_step_breakdown.py [key=value ...]
+    python3 tools/torch_step_breakdown.py [config.yaml] [--packed-corpus DIR]
+        [key=value ...]
 
-Runs GPT-2 small (``gpt2-small.yaml``, bsz 8, seq 1024, bf16, the flash
+Runs a config (``gpt2-small.yaml`` by default, at bsz 8 and bf16, the flash
 kernels on every layer) through the port's entry point
 ``cli.train_dist.train``, hooked after each step: a few warm-up steps, a
 few steps timed with CUDA events, then the same number traced with
 ``torch.profiler``. It sums the device time of every kernel by category
-(the flash kernels K1-K3, cuBLAS matrix products, the optimizer's foreach
-kernels, elementwise and reduction kernels, copies). The device's idle
-share is one minus the union of kernel intervals over the traced wall
-time, and also over the untraced step, which the profiler's host work
-does not stretch. Extra ``key=value`` arguments override the config as in
-``train_dist`` (``model.use_flash_attn=false`` times the plain attention
-core instead). Prints a table and, as its last line, the result as JSON.
-Needs one CUDA card.
+(the flash kernels K1-K3, the cross-entropy kernels K4/K5, cuBLAS matrix
+products, the optimizer's foreach kernels, elementwise and reduction
+kernels, copies). The device's idle share is one minus the union of kernel
+intervals over the traced wall time, and also over the untraced step,
+which the profiler's host work does not stretch. Extra ``key=value``
+arguments override the config as in ``train_dist``
+(``model.use_flash_attn=false`` times the plain attention core instead).
+``--packed-corpus DIR`` writes the seeded packed corpus of ``chip_smoke.py``
+phase 6 (600 documents, Qwen's eod id and vocabulary) into DIR with
+``data.synthetic.write_random_corpus`` and trains on it with packed
+documents and end-of-document loss masking. Prints a table and, as its last
+line, the result as JSON. Needs one CUDA card.
+
+The Qwen2.5-7B-width path of ``chip_smoke.py`` phase 6 (4 layers, bsz 2,
+seq 4096, fused cross-entropy, remat on every layer):
+
+    python3 tools/torch_step_breakdown.py \
+        hetu_galvatron_tpu/models/configs/qwen2.5-7b.yaml \
+        --packed-corpus qwen_corpus model.num_hidden_layers=4 \
+        model.use_fused_ce=true parallel.global_checkpoint=1 \
+        parallel.global_train_batch_size=2
 """
 
 from __future__ import annotations
@@ -29,11 +43,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GPT2_YAML = os.path.join(ROOT, "hetu_galvatron_tpu", "models", "configs",
                          "gpt2-small.yaml")
 WARMUP, STEPS = 3, 4
+# the corpus of --packed-corpus: Qwen2.5's padded vocabulary, <|endoftext|>
+# and tokenizer length, as chip_smoke.py phase 6 writes it
+QWEN_CORPUS = dict(docs=600, mean_len=1500, vocab=152064, eod=151643,
+                   tokenizer_vocab=151665)
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("flash K1 (fwd)", ("flash_fwd_kernel",)),
     ("flash K2 (bwd dk/dv)", ("flash_bwd_dkdv_kernel",)),
     ("flash K3 (bwd dq)", ("flash_bwd_dq_kernel",)),
+    ("CE K4 (fwd)", ("ce_fwd_kernel",)),
+    ("CE K5 (bwd)", ("ce_bwd_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
                          "sm80_")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
@@ -72,12 +92,28 @@ def main(argv) -> int:
     sys.path.insert(0, ROOT)
     from hetu_galvatron_tpu_torch.cli.train_dist import train
     from hetu_galvatron_tpu_torch.core.arguments import load_config
-    from hetu_galvatron_tpu_torch.ops import flash_attention as TF
+    from hetu_galvatron_tpu_torch.data.synthetic import (
+        packed_corpus_overrides,
+        write_random_corpus,
+    )
+    from hetu_galvatron_tpu_torch.ops import _build
 
-    args = load_config(GPT2_YAML, ["parallel.global_train_batch_size=8",
-                                   "parallel.mixed_precision=bf16",
-                                   *argv,
-                                   f"train.train_iters={WARMUP + 2 * STEPS}"])
+    config = GPT2_YAML
+    if argv and argv[0].endswith((".yaml", ".yml")):
+        config, argv = argv[0], argv[1:]
+    argv = list(argv)
+    if "--packed-corpus" in argv:
+        i = argv.index("--packed-corpus")
+        corpus_dir = argv[i + 1]
+        del argv[i:i + 2]
+        os.makedirs(corpus_dir, exist_ok=True)
+        prefix = os.path.join(os.path.abspath(corpus_dir), "corpus")
+        write_random_corpus(prefix, **QWEN_CORPUS)
+        argv = packed_corpus_overrides(prefix) + argv
+    args = load_config(config, ["parallel.global_train_batch_size=8",
+                                "parallel.mixed_precision=bf16",
+                                *argv,
+                                f"train.train_iters={WARMUP + 2 * STEPS}"])
     cfg = args.model
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     # device activity only: recording every host op would slow the host
@@ -93,7 +129,7 @@ def main(argv) -> int:
         elif it == WARMUP + STEPS - 1:
             end.record()
             end.synchronize()
-            TF.reset_launch_counts()
+            _build.reset_launch_counts()
             prof.start()
             wall["t0"] = time.perf_counter()
         elif it == WARMUP + 2 * STEPS - 1:
@@ -102,6 +138,7 @@ def main(argv) -> int:
             prof.stop()
 
     train(args, on_step=on_step)
+    launches = dict(_build.launch_counts)
     step_ms = start.elapsed_time(end) / STEPS
     traced_wall_us = wall["us"]
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -125,11 +162,14 @@ def main(argv) -> int:
                          text=True, timeout=60).stdout.strip()
     out = dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-        config=dict(model=cfg.model_name,
+        config=dict(model=cfg.model_name, layers=cfg.num_hidden_layers,
                     global_batch=args.parallel.global_train_batch_size,
                     seq=cfg.seq_length,
                     dtype=args.parallel.mixed_precision,
-                    flash=TF.launch_counts["flash_fwd"] > 0),
+                    flash=launches["flash_fwd"] > 0,
+                    fused_ce=launches["ce_fwd"] > 0,
+                    remat=args.parallel.global_checkpoint > 0,
+                    packed=args.data.reset_attention_mask),
         step_ms_cuda_events=step_ms, traced_steps=STEPS,
         traced_step_ms_host=traced_wall_us / STEPS / 1e3,
         kernel_ms_per_step=kernel_us / STEPS / 1e3,
@@ -139,7 +179,7 @@ def main(argv) -> int:
         # the traced busy time over the untraced step: the idle share with
         # no profiler on the host
         idle_share_of_untraced_step=1.0 - busy_us / STEPS / 1e3 / step_ms,
-        launches_per_step={k: v / STEPS for k, v in TF.launch_counts.items()},
+        launches_per_step={k: v / STEPS for k, v in launches.items()},
         kernels_per_step=len(kernels) / STEPS,
         categories_ms_per_step={
             k: v / STEPS / 1e3 for k, v in sorted(
