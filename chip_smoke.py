@@ -8,15 +8,24 @@ each of which ends the run with a non-zero exit when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``) and CUDA version;
 2. build: compile the kernels K1-K5 (flash attention, fused cross-entropy)
-   from ``hetu_galvatron_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``;
+   from ``hetu_galvatron_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, and
+   print each kernel's registers and spills (``-Xptxas -v``; a spill fails
+   the run);
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, every element held within its tolerance, timed beside the plain
    version, one PyTorch library call and the card's bound for the same
    work. K1-K3 at GPT-2 small's training shape (B=8, N=K=12, S=1024, D=64,
    bf16 and fp32, causal, q/k/v as strided views of the fused qkv
    projection), at the Qwen2.5-7B path's (B=2, N=28, K=4, S=4096, D=128,
-   bf16, causal with packed segments) and on small cases covering GQA,
-   segment ids, dropout, non-causal Sk != S, a ragged S and fp16. K4/K5 at
+   bf16 and fp16, causal with packed segments) and on small cases covering
+   GQA, segment ids (also repeating out of order), dropout, non-causal
+   Sk != S, a ragged S, D=32 and D=40, rows whose stride is not a multiple
+   of 8 elements, and fp16. For K2/K3 at both main shapes it also reports
+   TFLOP/s over the kept pairs, the share of the bound, K2 + K3 against the
+   library backward, and in its log the tiles the tile rule
+   (``computed_tiles``) computes against the tiles of the causal triangle;
+   at the Qwen shape it times them in fp16 too (one rounding of P and dS
+   where bf16 takes two). K4/K5 at
    the Qwen path's logits (T=8192, V=152064, fp32 and bf16) and on small
    cases: ragged T, V not a multiple of 128, labels at -1 and V, a row of
    equal logits, a row stride larger than V, fp16, and the z-loss through
@@ -42,7 +51,8 @@ The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
 and bound times measured at that path's shape. The row's own ``launches``
-and times are those of slice 2's path.
+and times are those of slice 2's path. K2/K3's blocks also carry the
+measured part of the report above.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -96,7 +107,7 @@ KERNELS = {
         library_call="scaled_dot_product_attention backward (dq, dk and dv "
                      "in one call: the yardstick of K2 + K3 together)"),
     "flash_bwd_dq": dict(
-        route="cuda", source="hetu_galvatron_tpu_torch/csrc/flash_bwd.cu",
+        route="cuda", source="hetu_galvatron_tpu_torch/csrc/flash_bwd_dq.cu",
         replaces="hetu_galvatron_tpu/ops/pallas/flash_attention.py:324",
         library_call="scaled_dot_product_attention backward (dq, dk and dv "
                      "in one call: the yardstick of K2 + K3 together)"),
@@ -111,6 +122,8 @@ KERNELS = {
                      "reduction='none')"),
 }
 FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+BWD = ("flash_bwd_dkdv", "flash_bwd_dq")
+QWEN_FP16 = f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} fp16 seg"
 
 
 class SmokeFailure(RuntimeError):
@@ -133,6 +146,46 @@ def nvidia_smi_line() -> str:
     if res.returncode != 0 or not res.stdout.strip():
         raise SmokeFailure(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's name, dtype and instantiation from its mangled symbol
+    (``galv::<name><T, DP, AL>``)."""
+    m = re.match(r"_ZN4galv(\d+)", mangled)
+    if m is None:
+        return mangled
+    n = int(m.group(1))
+    name, rest = mangled[m.end():m.end() + n], mangled[m.end() + n:]
+    dtype = ("bf16" if rest.startswith("I13__nv_bfloat16") else
+             "fp16" if rest.startswith("I6__half") else "fp32")
+    label = f"{name} {dtype}"
+    dp, al = re.search(r"Li(\d+)E", rest), re.search(r"Lb([01])E", rest)
+    if dp:
+        label += f" D<={dp.group(1)}"
+    if al:
+        label += " 16-byte copies" if al.group(1) == "1" else " element loads"
+    return label
+
+
+def ptxas_report(log_path: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from the
+    ``-Xptxas -v`` output of the build."""
+    rows, name, spill = [], None, (0, 0)
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = kernel_label(m.group(1))
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name is not None:
+                rows.append((name, int(m.group(1)), *spill))
+                name = None
+    return rows
 
 
 def card_peaks(name: str):
@@ -202,9 +255,23 @@ def compare(name: str, got, want, tol: float, absolute: bool = False):
             "tol_kind": "abs" if absolute else "elementwise"}
 
 
-def segments_for(batch: int, s: int, dev):
+def segments_for(batch: int, s: int, dev, kind="packed"):
+    """Segment ids [batch, s]: three packed documents (thirds, halves,
+    sixths of the row), or with ``kind="unsorted"`` runs of 1-80 positions
+    whose ids (0-3) repeat out of order, as 0, 1, 0, 2 would."""
     import torch
 
+    if kind == "unsorted":
+        gen = torch.Generator().manual_seed(s)
+        rows = []
+        for _ in range(batch):
+            runs = []
+            while sum(map(len, runs)) < s:
+                ln = int(torch.randint(1, 81, (1,), generator=gen))
+                runs.append(torch.full((ln,), int(torch.randint(
+                    0, 4, (1,), generator=gen)), dtype=torch.int32))
+            rows.append(torch.cat(runs)[:s])
+        return torch.stack(rows).to(dev)
     seg = torch.zeros((batch, s), dtype=torch.int32)
     seg[:, s // 3:s // 3 + s // 2] = 1
     seg[:, s // 3 + s // 2:] = 2
@@ -235,10 +302,18 @@ def check_case(tag, *, b, n, kv, s, sk, d, dtype, causal, seg, rate,
         kh = k.view(b, s, kv, d).transpose(1, 2)
         vh = v.view(b, s, kv, d).transpose(1, 2)
         doh = rnd(b, s, n, d).transpose(1, 2)
+    elif layout == "unaligned":
+        # rows d + 3 elements apart: no 16-byte copies (the kernels'
+        # element-wise instantiation)
+        def rows(h, length):
+            return rnd(b, h, length, d + 3)[..., :d]
+
+        qh, kh, vh, doh = rows(n, s), rows(kv, sk), rows(kv, sk), rows(n, s)
     else:
         qh, kh, vh = rnd(b, n, s, d), rnd(b, kv, sk, d), rnd(b, kv, sk, d)
         doh = rnd(b, n, s, d)
-    segs = segments_for(b, s, dev) if seg else None
+    segs = (segments_for(b, s, dev, seg if isinstance(seg, str) else
+                         "packed") if seg else None)
     dseed = seed if rate > 0 else None
     kw = dict(causal=causal, dropout_rate=rate)
     args = (qh, kh, vh)
@@ -777,7 +852,35 @@ def log_times(tag, times, lib, bnd):
             f"({bnd[k]['bound_by']})")
 
 
-def check_qwen_flash(peak_flops, peak_bytes):
+def bwd_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
+    """K2/K3 at one shape: TFLOP/s over the kept pairs, share of the bound,
+    and K2 + K3 against the library backward timed beside them. The log
+    also gives the tiles that the rule of ``computed_tiles`` computes at
+    the kernels' tile sizes against the tiles of the causal triangle,
+    derived from the rule and not counted in the kernels."""
+    from hetu_galvatron_tpu_torch.ops import flash_attention as TF
+
+    out = {}
+    for k, (tq, tk) in TF.bwd_tile_sizes(dtype).items():
+        ms = times[k][0]
+        done = TF.computed_tiles(s, s, tq, tk, causal=True, segments=segs)
+        tri = TF.computed_tiles(s, s, tq, tk, causal=True)
+        out[k] = dict(tflops=bnd[k]["flops"] / (ms * 1e-3) / 1e12,
+                      share_of_bound=bnd[k]["bound_ms"] / ms)
+        log(f"  {tag}: {k:<16} {out[k]['tflops']:.1f} TFLOP/s over the kept "
+            f"pairs, {100 * out[k]['share_of_bound']:.1f}% of the bound; "
+            f"the tile rule computes {int(done.sum()) * (b // done.shape[0])}"
+            f" of {int(tri.sum()) * b} causal {tq}x{tk} tiles")
+    pair = times["flash_bwd_dkdv"][0] + times["flash_bwd_dq"][0]
+    library = lib["flash_bwd_dkdv"]
+    log(f"  {tag}: K2 + K3 {pair:.3f} ms against the library backward "
+        f"{library:.3f} ms: {'faster' if pair < library else 'slower'} "
+        f"({library / pair:.2f}x)")
+    return dict(out, pair_ms=pair, library_ms=library,
+                pair_beats_library=pair < library)
+
+
+def check_qwen_flash(peak_flops, peak_bytes, fp16_ms):
     """K1-K3 at the Qwen path's attention shape (bf16, causal, packed
     segments, q/k/v as views of the fused qkv projection): checked against
     the plain versions and timed; the inputs are released on return."""
@@ -791,12 +894,18 @@ def check_qwen_flash(peak_flops, peak_bytes):
     bnd = bounds(QB, QN, QK, QS, QD, 2, peak_flops, peak_bytes,
                  segs=inputs[2])
     log_times("Qwen shape", times, lib, bnd)
+    report = bwd_report("Qwen shape", times, lib, bnd, b=QB, s=QS,
+                        dtype=torch.bfloat16, segs=inputs[2])
+    log(f"  Qwen shape: K2 + K3 bf16 {report['pair_ms']:.3f} ms (P and dS "
+        f"as hi + lo) against fp16 {sum(fp16_ms.values()):.3f} ms (one "
+        "rounding)")
     timing = {k: dict(ms=times[k][0], plain_ms=times[k][1],
                       library_ms=lib[k], bound_ms=bnd[k]["bound_ms"],
                       bound_by=bnd[k]["bound_by"], flops=bnd[k]["flops"],
                       bytes=bnd[k]["bytes"], shape=tag) for k in times}
     return {"checks": {k: [dict(r, case=tag) for r in recs]
-                       for k, recs in res.items()}, "timing": timing}
+                       for k, recs in res.items()}, "timing": timing,
+            "bwd": report}
 
 
 def check_ce(peak_bytes):
@@ -875,10 +984,12 @@ def main() -> int:
     log(f"  built {len(_build.sources())} sources with nvcc for sm_90a in "
         f"{_build.build_seconds:.1f} s ({time.perf_counter() - t0:.1f} s "
         "with loading)")
-    with open(os.path.join(_build.BUILD_DIR, "build.log")) as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas " + line.strip())
+    ptxas = ptxas_report(os.path.join(_build.BUILD_DIR, "build.log"))
+    for kname, regs, st, ld in ptxas:
+        log(f"  ptxas {kname:<58} {regs:>3} registers, spill {st} / {ld} "
+            "bytes")
+    if any(st or ld for _, _, st, ld in ptxas):
+        raise SmokeFailure("a kernel spills registers (ptxas above)")
 
     phase("phase 3: kernels against their plain versions")
     checks = {k: [] for k in KERNELS}
@@ -920,13 +1031,46 @@ def main() -> int:
                                              d=64, dtype=torch.float16,
                                              causal=False, seg=False,
                                              rate=0.1)),
+        # D=40 runs zero-padded to 64 in the 16-bit K2/K3 tiles
+        ("D=40 S=200 bf16", dict(b=2, n=4, kv=2, s=200, sk=200, d=40,
+                                 dtype=torch.bfloat16, causal=True, seg=True,
+                                 rate=0.0)),
+        # ids repeating out of order (0, 1, 0, 2, ...): the tile rule's
+        # [min, max] ranges stay conservative
+        ("unsorted segments S=300 bf16", dict(b=2, n=8, kv=2, s=300, sk=300,
+                                              d=64, dtype=torch.bfloat16,
+                                              causal=True, seg="unsorted",
+                                              rate=0.1)),
+        # rows d + 3 apart: the element-load instantiation of K2/K3
+        ("unaligned strides S=200 bf16", dict(b=2, n=8, kv=2, s=200, sk=200,
+                                              d=64, dtype=torch.bfloat16,
+                                              causal=True, seg=True, rate=0.0,
+                                              layout="unaligned")),
+        ("unaligned strides D=40 S=77 fp16", dict(b=2, n=4, kv=2, s=77,
+                                                  sk=77, d=40,
+                                                  dtype=torch.float16,
+                                                  causal=False, seg=False,
+                                                  rate=0.0,
+                                                  layout="unaligned")),
+        (QWEN_FP16,
+         dict(b=QB, n=QN, kv=QK, s=QS, sk=QS, d=QD, dtype=torch.float16,
+              causal=True, seg=True, rate=0.0, layout="fused")),
     ]
     for name_k, recs in slice_res.items():
         checks[name_k] += [dict(r, case="slice bf16") for r in recs]
     for tag, kw in cases:
-        res, _ = check_case(tag, **kw)
+        res, inputs = check_case(tag, **kw)
         for name_k, recs in res.items():
             checks[name_k] += [dict(r, case=tag) for r in recs]
+        if tag == QWEN_FP16:
+            # fp16 rounds P and dS once where bf16 carries them as hi + lo:
+            # the two dtypes' times show what the split costs
+            _, bwd, _, _, kw_b = inputs
+            fp16_ms = {k: time_ms(lambda fn=getattr(TF, k): fn(*bwd, **kw_b),
+                                  BIG_REPS) for k in BWD}
+            log(f"  {tag}: K2 {fp16_ms['flash_bwd_dkdv']:.3f} ms, K3 "
+                f"{fp16_ms['flash_bwd_dq']:.3f} ms")
+        del inputs
     auto = [dict(r, case=f"slice {tag}") for dtype, tag in
             ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))
             for r in check_autograd(f"slice {tag}", b=B, n=N, s=S, d=D,
@@ -934,8 +1078,10 @@ def main() -> int:
     times, lib = time_kernels(slice_inputs)
     bnd = bounds(B, N, N, S, D, 2, peak_flops, peak_bytes)
     log_times("GPT-2 shape", times, lib, bnd)
+    gpt2_bwd = bwd_report("GPT-2 shape", times, lib, bnd, b=B, s=S,
+                          dtype=torch.bfloat16)
     del slice_inputs
-    qwen_flash = check_qwen_flash(peak_flops, peak_bytes)
+    qwen_flash = check_qwen_flash(peak_flops, peak_bytes, fp16_ms)
     for name_k, recs in qwen_flash["checks"].items():
         checks[name_k] += recs
     ce = check_ce(peak_bytes)
@@ -990,6 +1136,13 @@ def main() -> int:
             paths[qwen_name] = block(
                 k, qwen, timing, max_err(k, timing["shape"], ("elementwise",)),
                 timing["shape"])
+            if k in BWD:
+                for path, rep in (("gpt2-small", gpt2_bwd),
+                                  (qwen_name, qwen_flash["bwd"])):
+                    paths[path].update(
+                        rep[k], pair_ms=rep["pair_ms"],
+                        pair_beats_library=rep["pair_beats_library"])
+                paths[qwen_name]["fp16_ms"] = fp16_ms[k]
             tol_rule = ("every element: |got - want| <= tol * (rms(want) + "
                         "|want|); 1e-4 in fp32, 1e-3 absolute on lse")
             tol, extra = TOL_16, {}

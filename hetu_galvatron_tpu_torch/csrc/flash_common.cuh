@@ -1,4 +1,5 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_bwd_dq.cu).
 //
 // Layout contract (checked by ops/flash_attention.py before any launch):
 //   q, o, dO, dq  logical [B, N, S, D];  k, v, dk, dv  logical [B, K, Sk, D]
@@ -7,11 +8,12 @@
 //   fused qkv projection without copying. lse and delta are [B, N, S] fp32,
 //   contiguous; segment ids are [B, S] int32, contiguous (S == Sk).
 //
-// Tiles are BQ x BK = 64 x 64 positions; 256 threads form a 16 x 16 grid and
-// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
-// score tile, and the same rows x columns tx + 16 jd of a [64, D] tile. All
-// arithmetic is fp32 FMA on shared-memory tiles (padded by one column so the
-// strided row reads fall in distinct banks).
+// The FMA kernels (K1, and K2/K3 for fp32; the 16-bit K2/K3 tiles are in
+// flash_bwd.cuh) use BQ x BK = 64 x 64 tiles; 256 threads form a 16 x 16
+// grid and thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
+// (i, j < 4) of a score tile, and the same rows x columns tx + 16 jd of a
+// [64, D] tile. Their arithmetic is fp32 FMA on shared-memory tiles (padded
+// by one column so the strided row reads fall in distinct banks).
 #pragma once
 
 #include <cuda_bf16.h>

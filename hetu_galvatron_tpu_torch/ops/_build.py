@@ -49,10 +49,8 @@ SIGNATURES = {
     "galv_ce_bwd": [_I, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P],
     "galv_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _U32,
                        _U32, _F, _P],
-    "galv_flash_bwd_dkdv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _F, _I, _U32, _U32, _F, _P],
-    "galv_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F,
-                          _I, _U32, _U32, _F, _P],
+    "galv_flash_bwd_dkdv": [_I, *[_P] * 11, _I, _F, _I, _U32, _U32, _F, _P],
+    "galv_flash_bwd_dq": [_I, *[_P] * 10, _I, _F, _I, _U32, _U32, _F, _P],
 }
 
 # kernel launches since the last reset, by launch function without its

@@ -15,6 +15,12 @@ q-head n to kv-head ``n // (N // K)``. :func:`flash_sdpa` is the drop-in
 
 Unlike the Pallas kernels the CUDA kernels mask a ragged tail, so any S
 runs and there is no dense fallback for untileable lengths.
+
+K2/K3 take one of two instantiations by dtype: bf16 and fp16 run on the
+tensor cores and compute a (q-tile, k-tile) pair only where causality and
+the tiles' segment-id ranges allow, taking the ranges from the ids they
+load; :func:`computed_tiles` is that rule in torch, the reference the tests
+hold it to. fp32 runs the FMA kernels.
 """
 
 from __future__ import annotations
@@ -157,6 +163,55 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, segments=None,
     _, ds = _bwd_p_ds(q, k, v, do, lse, delta, segments, dropout_seed,
                       causal, dropout_rate)
     return torch.matmul(ds, _expand_kv(k, q.shape[1])).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' tile rule
+# ---------------------------------------------------------------------------
+
+
+def bwd_tile_sizes(dtype=torch.bfloat16):
+    """(q rows, k rows) of a tile of K2 and K3 (``csrc/flash_bwd.cuh``,
+    ``Tc``): on the tensor cores K2 holds 64 k rows and streams 32 q rows,
+    K3 holds 64 q rows and streams 32 k rows; fp32 runs 64 x 64 tiles."""
+    if dtype == torch.float32:
+        return {"flash_bwd_dkdv": (64, 64), "flash_bwd_dq": (64, 64)}
+    return {"flash_bwd_dkdv": (32, 64), "flash_bwd_dq": (64, 32)}
+
+
+def tile_segment_ranges(segments: torch.Tensor, tile: int) -> torch.Tensor:
+    """[B, ceil(S / tile), 2] int32: the least and the largest segment id in
+    each run of ``tile`` positions of ``segments`` [B, S] (a ragged last
+    tile over its own positions only), as the 16-bit K2/K3 take them from
+    the ids of each tile (``csrc/flash_bwd.cuh``: ``tile_range``)."""
+    B, S = segments.shape
+    nt = -(-S // tile)
+    seg = segments.to(torch.int32)
+    if nt * tile > S:  # repeat the last id: min and max stay the tile's
+        seg = torch.cat([seg, seg[:, -1:].expand(B, nt * tile - S)], dim=1)
+    seg = seg.reshape(B, nt, tile)
+    return torch.stack([seg.amin(-1), seg.amax(-1)], dim=-1).contiguous()
+
+
+def computed_tiles(S: int, Sk: int, tile_q: int, tile_k: int, *,
+                   causal: bool, segments=None) -> torch.Tensor:
+    """[B|1, nq, nk] bool: the (q-tile, k-tile) pairs the 16-bit K2/K3
+    compute. A pair is computed when causality allows some (q, k) in it
+    (its last q row reaches its first k row) and the two tiles' segment-id
+    ranges overlap. Disjoint ranges share no id whatever the order of the
+    ids, so no attended pair is skipped."""
+    nq, nk = -(-S // tile_q), -(-Sk // tile_k)
+    qt = torch.arange(nq)[:, None]
+    kt = torch.arange(nk)[None, :]
+    ok = torch.ones((1, nq, nk), dtype=torch.bool)
+    if causal:
+        ok = ok & (qt * tile_q + tile_q - 1 >= kt * tile_k)
+    if segments is not None:
+        qr = tile_segment_ranges(segments.cpu(), tile_q)
+        kr = tile_segment_ranges(segments.cpu(), tile_k)
+        ok = ok & ((qr[:, :, None, 0] <= kr[:, None, :, 1])
+                   & (kr[:, None, :, 0] <= qr[:, :, None, 1]))
+    return ok
 
 
 # ---------------------------------------------------------------------------

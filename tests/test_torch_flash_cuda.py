@@ -54,3 +54,73 @@ def test_torch_flash_kernels_match_plain_on_cuda():
     for a, b in zip(grads, (dq, dk, dv)):
         np.testing.assert_allclose(a.transpose(1, 2).cpu().numpy(),
                                    b.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _runs(B, S, seed):
+    """Segment ids in runs of 1-40 positions, repeating out of order."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(B):
+        ids = []
+        while len(ids) < S:
+            ids += [int(rng.integers(0, 4))] * int(rng.integers(1, 41))
+        rows.append(ids[:S])
+    return np.asarray(rows, np.int32)
+
+
+# 16-bit K2/K3 (tensor cores) against their plain versions: D zero-padded
+# to a multiple of 16, unsorted segment ids, rows whose stride is not a
+# multiple of 8 elements (element-wise loads), fp16, GQA and dropout
+TC_CASES = {
+    "bf16_d40_packed": dict(dtype=torch.bfloat16, D=40, seg="packed"),
+    "bf16_unsorted_segments_dropout": dict(dtype=torch.bfloat16, D=64,
+                                           seg="runs", rate=0.1),
+    "bf16_unaligned_strides": dict(dtype=torch.bfloat16, D=64,
+                                   seg="packed", pad=3),
+    "fp16_d40_unaligned_noncausal": dict(dtype=torch.float16, D=40,
+                                         causal=False, pad=3, Sk=136),
+    "fp16_gqa_packed_dropout": dict(dtype=torch.float16, D=128,
+                                    seg="packed", rate=0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_torch_flash_bwd_tensor_core_kernels_match_plain_on_cuda(case):
+    """Every element of dk, dv, dq within 2e-2 * (rms(want) + |want|), the
+    16-bit tolerance of chip_smoke.py phase 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    c = TC_CASES[case]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, N, K, S, D = 2, 8, 2, 200, c["D"]
+    Sk = c.get("Sk", S)
+    pad = c.get("pad", 0)
+
+    def rnd(h, length):
+        x = torch.randn(B, h, length, D + pad, device=dev, generator=gen)
+        return x.to(c["dtype"])[..., :D]
+
+    q, do, k, v = rnd(N, S), rnd(N, S), rnd(K, Sk), rnd(K, Sk)
+    seg = {"packed": lambda: torch.from_numpy(_segments(B, S)),
+           "runs": lambda: torch.from_numpy(_runs(B, S, 5)),
+           None: lambda: None}[c.get("seg")]()
+    seg = None if seg is None else seg.to(dev)
+    causal, rate = c.get("causal", True), c.get("rate", 0.0)
+    seed = 11 if rate > 0 else None
+    kw = dict(causal=causal, dropout_rate=rate)
+    o, lse = TF.flash_fwd_plain(q, k, v, seg, seed, **kw)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse.contiguous(), delta, seg, seed)
+    _build.reset_launch_counts()
+    got = (*TF.flash_bwd_dkdv(*args, **kw), TF.flash_bwd_dq(*args, **kw))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_bwd_dkdv"] == 1
+    assert _build.launch_counts["flash_bwd_dq"] == 1
+    want = (*TF.flash_bwd_dkdv_plain(*args, **kw),
+            TF.flash_bwd_dq_plain(*args, **kw))
+    for g, w in zip(got, want):
+        assert g.dtype == c["dtype"] and g.shape == w.shape
+        g, w = g.float(), w.float()
+        limit = 2e-2 * (w.square().mean().sqrt() + w.abs())
+        assert ((g - w).abs() <= limit).all()
