@@ -20,12 +20,14 @@ each of which ends the run with a non-zero exit when it fails:
    bf16 and fp16, causal with packed segments) and on small cases covering
    GQA, segment ids (also repeating out of order), dropout, non-causal
    Sk != S, a ragged S, D=32 and D=40, rows whose stride is not a multiple
-   of 8 elements, and fp16. For K2/K3 at both main shapes it also reports
-   TFLOP/s over the kept pairs, the share of the bound, K2 + K3 against the
-   library backward, and in its log the tiles the tile rule
-   (``computed_tiles``) computes against the tiles of the causal triangle;
-   at the Qwen shape it times them in fp16 too (one rounding of P and dS
-   where bf16 takes two). K4/K5 at
+   of 8 elements, and fp16 (bf16 and fp16 run the tensor-core K1-K3, fp32
+   their FMA kernels). For K1-K3 at both main shapes it also reports
+   TFLOP/s over the kept pairs, the share of the bound, K1 against the
+   library forward and K2 + K3 against the library backward, and in its log
+   the tiles the tile rule (``computed_tiles``) computes against the tiles
+   of the causal triangle; at the Qwen shape it times them in fp16 too
+   (fp16 rounds P, and K2/K3's dS, once where bf16 carries them as hi +
+   lo). K4/K5 at
    the Qwen path's logits (T=8192, V=152064, fp32 and bf16) and on small
    cases: ragged T, V not a multiple of 128, labels at -1 and V, a row of
    equal logits, a row stride larger than V, fp16, and the z-loss through
@@ -51,7 +53,7 @@ The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
 and bound times measured at that path's shape. The row's own ``launches``
-and times are those of slice 2's path. K2/K3's blocks also carry the
+and times are those of slice 2's path. K1-K3's blocks also carry the
 measured part of the report above.
 """
 
@@ -852,16 +854,17 @@ def log_times(tag, times, lib, bnd):
             f"({bnd[k]['bound_by']})")
 
 
-def bwd_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
-    """K2/K3 at one shape: TFLOP/s over the kept pairs, share of the bound,
-    and K2 + K3 against the library backward timed beside them. The log
-    also gives the tiles that the rule of ``computed_tiles`` computes at
-    the kernels' tile sizes against the tiles of the causal triangle,
-    derived from the rule and not counted in the kernels."""
+def flash_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
+    """K1-K3 at one shape: TFLOP/s over the kept pairs, share of the bound,
+    K1 against the library forward and K2 + K3 against the library
+    backward timed beside them. The log also gives the tiles that the rule
+    of ``computed_tiles`` computes at the kernels' tile sizes against the
+    tiles of the causal triangle, derived from the rule and not counted in
+    the kernels."""
     from hetu_galvatron_tpu_torch.ops import flash_attention as TF
 
     out = {}
-    for k, (tq, tk) in TF.bwd_tile_sizes(dtype).items():
+    for k, (tq, tk) in TF.tile_sizes(dtype).items():
         ms = times[k][0]
         done = TF.computed_tiles(s, s, tq, tk, causal=True, segments=segs)
         tri = TF.computed_tiles(s, s, tq, tk, causal=True)
@@ -871,6 +874,11 @@ def bwd_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
             f"pairs, {100 * out[k]['share_of_bound']:.1f}% of the bound; "
             f"the tile rule computes {int(done.sum()) * (b // done.shape[0])}"
             f" of {int(tri.sum()) * b} causal {tq}x{tk} tiles")
+    fwd, fwd_lib = times["flash_fwd"][0], lib["flash_fwd"]
+    log(f"  {tag}: K1 {fwd:.3f} ms against the library forward "
+        f"{fwd_lib:.3f} ms: {'faster' if fwd < fwd_lib else 'slower'} "
+        f"({fwd_lib / fwd:.2f}x)")
+    out["flash_fwd"]["beats_library"] = fwd < fwd_lib
     pair = times["flash_bwd_dkdv"][0] + times["flash_bwd_dq"][0]
     library = lib["flash_bwd_dkdv"]
     log(f"  {tag}: K2 + K3 {pair:.3f} ms against the library backward "
@@ -894,18 +902,20 @@ def check_qwen_flash(peak_flops, peak_bytes, fp16_ms):
     bnd = bounds(QB, QN, QK, QS, QD, 2, peak_flops, peak_bytes,
                  segs=inputs[2])
     log_times("Qwen shape", times, lib, bnd)
-    report = bwd_report("Qwen shape", times, lib, bnd, b=QB, s=QS,
-                        dtype=torch.bfloat16, segs=inputs[2])
+    report = flash_report("Qwen shape", times, lib, bnd, b=QB, s=QS,
+                          dtype=torch.bfloat16, segs=inputs[2])
+    log(f"  Qwen shape: K1 bf16 {times['flash_fwd'][0]:.3f} ms (P as hi + "
+        f"lo) against fp16 {fp16_ms['flash_fwd']:.3f} ms (one rounding)")
     log(f"  Qwen shape: K2 + K3 bf16 {report['pair_ms']:.3f} ms (P and dS "
-        f"as hi + lo) against fp16 {sum(fp16_ms.values()):.3f} ms (one "
-        "rounding)")
+        f"as hi + lo) against fp16 "
+        f"{sum(fp16_ms[k] for k in BWD):.3f} ms (one rounding)")
     timing = {k: dict(ms=times[k][0], plain_ms=times[k][1],
                       library_ms=lib[k], bound_ms=bnd[k]["bound_ms"],
                       bound_by=bnd[k]["bound_by"], flops=bnd[k]["flops"],
                       bytes=bnd[k]["bytes"], shape=tag) for k in times}
     return {"checks": {k: [dict(r, case=tag) for r in recs]
                        for k, recs in res.items()}, "timing": timing,
-            "bwd": report}
+            "report": report}
 
 
 def check_ce(peak_bytes):
@@ -1063,12 +1073,16 @@ def main() -> int:
         for name_k, recs in res.items():
             checks[name_k] += [dict(r, case=tag) for r in recs]
         if tag == QWEN_FP16:
-            # fp16 rounds P and dS once where bf16 carries them as hi + lo:
-            # the two dtypes' times show what the split costs
-            _, bwd, _, _, kw_b = inputs
-            fp16_ms = {k: time_ms(lambda fn=getattr(TF, k): fn(*bwd, **kw_b),
+            # fp16 rounds P (and K2/K3's dS) once where bf16 carries them
+            # as hi + lo: the two dtypes' times show what the split costs
+            args_h, bwd, segs_h, dseed_h, kw_h = inputs
+            fp16_ms = {k: time_ms(lambda fn=getattr(TF, k): fn(*bwd, **kw_h),
                                   BIG_REPS) for k in BWD}
-            log(f"  {tag}: K2 {fp16_ms['flash_bwd_dkdv']:.3f} ms, K3 "
+            fp16_ms["flash_fwd"] = time_ms(
+                lambda: TF.flash_attention_hmajor(*args_h, segs_h, dseed_h,
+                                                  **kw_h), BIG_REPS)
+            log(f"  {tag}: K1 {fp16_ms['flash_fwd']:.3f} ms, K2 "
+                f"{fp16_ms['flash_bwd_dkdv']:.3f} ms, K3 "
                 f"{fp16_ms['flash_bwd_dq']:.3f} ms")
         del inputs
     auto = [dict(r, case=f"slice {tag}") for dtype, tag in
@@ -1078,8 +1092,8 @@ def main() -> int:
     times, lib = time_kernels(slice_inputs)
     bnd = bounds(B, N, N, S, D, 2, peak_flops, peak_bytes)
     log_times("GPT-2 shape", times, lib, bnd)
-    gpt2_bwd = bwd_report("GPT-2 shape", times, lib, bnd, b=B, s=S,
-                          dtype=torch.bfloat16)
+    gpt2_rep = flash_report("GPT-2 shape", times, lib, bnd, b=B, s=S,
+                            dtype=torch.bfloat16)
     del slice_inputs
     qwen_flash = check_qwen_flash(peak_flops, peak_bytes, fp16_ms)
     for name_k, recs in qwen_flash["checks"].items():
@@ -1136,13 +1150,14 @@ def main() -> int:
             paths[qwen_name] = block(
                 k, qwen, timing, max_err(k, timing["shape"], ("elementwise",)),
                 timing["shape"])
-            if k in BWD:
-                for path, rep in (("gpt2-small", gpt2_bwd),
-                                  (qwen_name, qwen_flash["bwd"])):
+            for path, rep in (("gpt2-small", gpt2_rep),
+                              (qwen_name, qwen_flash["report"])):
+                paths[path].update(rep[k])
+                if k in BWD:
                     paths[path].update(
-                        rep[k], pair_ms=rep["pair_ms"],
+                        pair_ms=rep["pair_ms"],
                         pair_beats_library=rep["pair_beats_library"])
-                paths[qwen_name]["fp16_ms"] = fp16_ms[k]
+            paths[qwen_name]["fp16_ms"] = fp16_ms[k]
             tol_rule = ("every element: |got - want| <= tol * (rms(want) + "
                         "|want|); 1e-4 in fp32, 1e-3 absolute on lse")
             tol, extra = TOL_16, {}

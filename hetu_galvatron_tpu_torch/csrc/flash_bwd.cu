@@ -53,7 +53,7 @@
 //     ranges [min, max] overlap (exact for ids in any order: disjoint
 //     ranges share no id). Each block takes the ranges from the segment
 //     ids themselves before its tile loop, one coalesced row of ids and a
-//     warp reduction per tile (tile_range, tile_flags in flash_bwd.cuh),
+//     warp reduction per tile (tile_range, tile_flags in flash_tc.cuh),
 //     and keeps one flag a streamed tile in shared memory: skip, compute
 //     with the mask, or compute one document's tile without it.
 //     ops/flash_attention.py::computed_tiles is the same rule in torch,

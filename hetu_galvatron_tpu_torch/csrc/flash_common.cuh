@@ -8,12 +8,13 @@
 //   fused qkv projection without copying. lse and delta are [B, N, S] fp32,
 //   contiguous; segment ids are [B, S] int32, contiguous (S == Sk).
 //
-// The FMA kernels (K1, and K2/K3 for fp32; the 16-bit K2/K3 tiles are in
-// flash_bwd.cuh) use BQ x BK = 64 x 64 tiles; 256 threads form a 16 x 16
-// grid and thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-// (i, j < 4) of a score tile, and the same rows x columns tx + 16 jd of a
-// [64, D] tile. Their arithmetic is fp32 FMA on shared-memory tiles (padded
-// by one column so the strided row reads fall in distinct banks).
+// The fp32 FMA kernels of K1-K3 (the bf16/fp16 kernels run on the tensor
+// cores, with their tiles in flash_tc.cuh) use BQ x BK = 64 x 64 tiles;
+// 256 threads form a 16 x 16 grid and thread (ty, tx) owns rows ty + 16 i
+// and columns tx + 16 j (i, j < 4) of a score tile, and the same rows x
+// columns tx + 16 jd of a [64, D] tile. Their arithmetic is fp32 FMA on
+// shared-memory tiles (padded by one column so the strided row reads fall
+// in distinct banks).
 #pragma once
 
 #include <cuda_bf16.h>

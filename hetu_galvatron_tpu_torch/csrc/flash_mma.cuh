@@ -1,7 +1,7 @@
-// Tensor-core building blocks of the 16-bit flash backward kernels
-// (flash_bwd.cu): warp-level mma.sync m16n8k16 (bf16/fp16 in, fp32
-// accumulate), ldmatrix loads of 8x8 16-bit tiles from shared memory, and
-// cp.async copies from global to shared memory.
+// Tensor-core building blocks of the 16-bit flash kernels (flash_fwd.cu,
+// flash_bwd.cu, flash_bwd_dq.cu): warp-level mma.sync m16n8k16 (bf16/fp16
+// in, fp32 accumulate), ldmatrix loads of 8x8 16-bit tiles from shared
+// memory, and cp.async copies from global to shared memory.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 32 threads, g = lane / 4,
 // t = lane % 4):

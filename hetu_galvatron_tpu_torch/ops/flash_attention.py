@@ -2,10 +2,10 @@
 
 Counterpart of ``hetu_galvatron_tpu/ops/pallas/flash_attention.py``. The
 kernels are hand-written CUDA C++ (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``), built by :mod:`._build` at first use. Each has a
-plain PyTorch version here that computes the same function densely; the
-wrappers run the plain version only for tensors on the CPU, and for a CUDA
-tensor launch the kernel or raise.
+``csrc/flash_bwd.cu``, ``csrc/flash_bwd_dq.cu``), built by :mod:`._build`
+at first use. Each has a plain PyTorch version here that computes the same
+function densely; the wrappers run the plain version only for tensors on
+the CPU, and for a CUDA tensor launch the kernel or raise.
 
 Layout: the ``*_hmajor`` functions take q ``[B, N, S, D]`` and k/v
 ``[B, K, Sk, D]`` (logical shapes; any strides with a unit stride along D,
@@ -16,11 +16,12 @@ q-head n to kv-head ``n // (N // K)``. :func:`flash_sdpa` is the drop-in
 Unlike the Pallas kernels the CUDA kernels mask a ragged tail, so any S
 runs and there is no dense fallback for untileable lengths.
 
-K2/K3 take one of two instantiations by dtype: bf16 and fp16 run on the
-tensor cores and compute a (q-tile, k-tile) pair only where causality and
-the tiles' segment-id ranges allow, taking the ranges from the ids they
-load; :func:`computed_tiles` is that rule in torch, the reference the tests
-hold it to. fp32 runs the FMA kernels.
+K1, K2 and K3 each take one of two instantiations by dtype: bf16 and fp16
+run on the tensor cores and compute a (q-tile, k-tile) pair only where
+causality and the tiles' segment-id ranges allow, taking the ranges from
+the ids they load; :func:`computed_tiles` is that rule in torch, the
+reference the tests hold it to, and :func:`tile_sizes` gives each kernel's
+tiles. fp32 runs the FMA kernels.
 """
 
 from __future__ import annotations
@@ -166,24 +167,27 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, segments=None,
 
 
 # ---------------------------------------------------------------------------
-# the backward kernels' tile rule
+# the kernels' tile rule
 # ---------------------------------------------------------------------------
 
 
-def bwd_tile_sizes(dtype=torch.bfloat16):
-    """(q rows, k rows) of a tile of K2 and K3 (``csrc/flash_bwd.cuh``,
-    ``Tc``): on the tensor cores K2 holds 64 k rows and streams 32 q rows,
-    K3 holds 64 q rows and streams 32 k rows; fp32 runs 64 x 64 tiles."""
+def tile_sizes(dtype=torch.bfloat16):
+    """(q rows, k rows) of a tile of K1, K2 and K3 (``csrc/flash_tc.cuh``,
+    ``Tc``): on the tensor cores K1 holds 64 q rows and streams 64 k rows,
+    K2 holds 64 k rows and streams 32 q rows, K3 holds 64 q rows and
+    streams 32 k rows; fp32 runs 64 x 64 tiles."""
     if dtype == torch.float32:
-        return {"flash_bwd_dkdv": (64, 64), "flash_bwd_dq": (64, 64)}
-    return {"flash_bwd_dkdv": (32, 64), "flash_bwd_dq": (64, 32)}
+        return {"flash_fwd": (64, 64), "flash_bwd_dkdv": (64, 64),
+                "flash_bwd_dq": (64, 64)}
+    return {"flash_fwd": (64, 64), "flash_bwd_dkdv": (32, 64),
+            "flash_bwd_dq": (64, 32)}
 
 
 def tile_segment_ranges(segments: torch.Tensor, tile: int) -> torch.Tensor:
     """[B, ceil(S / tile), 2] int32: the least and the largest segment id in
     each run of ``tile`` positions of ``segments`` [B, S] (a ragged last
-    tile over its own positions only), as the 16-bit K2/K3 take them from
-    the ids of each tile (``csrc/flash_bwd.cuh``: ``tile_range``)."""
+    tile over its own positions only), as the 16-bit K1-K3 take them from
+    the ids of each tile (``csrc/flash_tc.cuh``: ``tile_range``)."""
     B, S = segments.shape
     nt = -(-S // tile)
     seg = segments.to(torch.int32)
@@ -195,7 +199,7 @@ def tile_segment_ranges(segments: torch.Tensor, tile: int) -> torch.Tensor:
 
 def computed_tiles(S: int, Sk: int, tile_q: int, tile_k: int, *,
                    causal: bool, segments=None) -> torch.Tensor:
-    """[B|1, nq, nk] bool: the (q-tile, k-tile) pairs the 16-bit K2/K3
+    """[B|1, nq, nk] bool: the (q-tile, k-tile) pairs the 16-bit K1-K3
     compute. A pair is computed when causality allows some (q, k) in it
     (its last q row reaches its first k row) and the two tiles' segment-id
     ranges overlap. Disjoint ranges share no id whatever the order of the

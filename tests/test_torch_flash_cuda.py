@@ -124,3 +124,60 @@ def test_torch_flash_bwd_tensor_core_kernels_match_plain_on_cuda(case):
         g, w = g.float(), w.float()
         limit = 2e-2 * (w.square().mean().sqrt() + w.abs())
         assert ((g - w).abs() <= limit).all()
+
+
+# 16-bit K1 (tensor cores) against its plain version: D 32, 40 (padded to
+# 64), 64 and 128, GQA, packed and unsorted segment ids, dropout, non-causal
+# Sk != S, and rows whose stride is not a multiple of 8 elements
+FWD_TC_CASES = {
+    "bf16_d32_packed": dict(dtype=torch.bfloat16, D=32, seg="packed"),
+    "bf16_d40_unsorted_dropout": dict(dtype=torch.bfloat16, D=40,
+                                      seg="runs", rate=0.1),
+    "bf16_d64_unaligned_packed": dict(dtype=torch.bfloat16, D=64,
+                                      seg="packed", pad=3),
+    "bf16_d128_noncausal_sk136_dropout": dict(dtype=torch.bfloat16, D=128,
+                                              causal=False, Sk=136,
+                                              rate=0.1),
+    "fp16_d40_unaligned_noncausal": dict(dtype=torch.float16, D=40,
+                                         causal=False, pad=3, Sk=136),
+    "fp16_d64_unsorted": dict(dtype=torch.float16, D=64, seg="runs"),
+    "fp16_d128_gqa_packed_dropout": dict(dtype=torch.float16, D=128,
+                                         seg="packed", rate=0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_TC_CASES))
+def test_torch_flash_fwd_tensor_core_kernel_matches_plain_on_cuda(case):
+    """Every element of o within 2e-2 * (rms(want) + |want|) and lse within
+    1e-3 absolute, the tolerances of chip_smoke.py phase 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    c = FWD_TC_CASES[case]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, N, K, S, D = 2, 8, 2, 200, c["D"]
+    Sk = c.get("Sk", S)
+    pad = c.get("pad", 0)
+
+    def rnd(h, length):
+        x = torch.randn(B, h, length, D + pad, device=dev, generator=gen)
+        return x.to(c["dtype"])[..., :D]
+
+    q, k, v = rnd(N, S), rnd(K, Sk), rnd(K, Sk)
+    seg = {"packed": lambda: torch.from_numpy(_segments(B, S)),
+           "runs": lambda: torch.from_numpy(_runs(B, S, 6)),
+           None: lambda: None}[c.get("seg")]()
+    seg = None if seg is None else seg.to(dev)
+    rate = c.get("rate", 0.0)
+    seed = 13 if rate > 0 else None
+    kw = dict(causal=c.get("causal", True), dropout_rate=rate)
+    _build.reset_launch_counts()
+    o, lse = TF.flash_attention_hmajor(q, k, v, seg, seed, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_fwd"] == 1
+    o_p, lse_p = TF.flash_fwd_plain(q, k, v, seg, seed, **kw)
+    assert o.dtype == c["dtype"] and o.shape == o_p.shape
+    g, w = o.float(), o_p.float()
+    limit = 2e-2 * (w.square().mean().sqrt() + w.abs())
+    assert ((g - w).abs() <= limit).all()
+    assert float((lse - lse_p).abs().max()) <= 1e-3

@@ -1,13 +1,15 @@
-"""What surrounds the 16-bit flash backward kernels K2/K3, on the CPU.
+"""What surrounds the 16-bit flash kernels K1-K3, on the CPU.
 
 The CUDA kernels compute a (q-tile, k-tile) pair only where causality and
 the tiles' segment-id ranges allow, reducing each tile's ids themselves;
 ``ops.flash_attention.computed_tiles`` (with ``tile_segment_ranges``) is
 the same rule in torch. These tests hold that rule to the dense mask of
 attended pairs, count its tiles at the packed layout of ``chip_smoke.py``,
-and check a tile-by-tile emulation of the kernels' arithmetic (P and dS
-rounded to the 16-bit type, bf16 as hi + lo, fp32 sums, skipped tiles left
-out) against the JAX Pallas backward in interpret mode.
+and check tile-by-tile emulations of the kernels' arithmetic against the
+JAX Pallas kernels in interpret mode: the forward's online softmax (fp32
+scores, m, l and corr, P rounded to the 16-bit type) and the backward's (P
+and dS rounded to the 16-bit type), bf16 as hi + lo and fp16 once, fp32
+sums, each with its skipped tiles left out.
 """
 
 import math
@@ -130,8 +132,9 @@ def test_torch_tile_counts_at_the_packed_layout():
     """chip_smoke.py's Qwen shape (S=4096, documents of S/3, S/2 and S/6):
     the counts worked out by hand from the documents' tile spans."""
     seg = torch.from_numpy(_packed(2, 4096))
-    sizes = TF.bwd_tile_sizes(torch.bfloat16)
+    sizes = TF.tile_sizes(torch.bfloat16)
     want = {  # (computed per batch row, causal triangle)
+        "flash_fwd": (253 + 561 + 66 - 2, 2080),         # 64 x 64 tiles
         "flash_bwd_dkdv": (484 + 1089 + 132 - 2, 4160),  # 32 x 64 tiles
         "flash_bwd_dq": (505 + 1121 + 132 - 2, 4160),    # 64 x 32 tiles
     }
@@ -141,18 +144,18 @@ def test_torch_tile_counts_at_the_packed_layout():
         tri = TF.computed_tiles(4096, 4096, tq, tk, causal=True)
         assert [int(x) for x in done.sum(dim=(1, 2))] == [want[name][0]] * 2
         assert int(tri.sum()) == want[name][1]
-    done = TF.computed_tiles(4096, 4096, 64, 64, causal=True, segments=seg)
-    assert int(done[0].sum()) == 253 + 561 + 66 - 2  # 878 of 2080
+    assert set(sizes) == set(want)
 
 
 def test_torch_tile_sizes_mirror_the_kernel_source():
-    with open(os.path.join(CSRC, "flash_bwd.cuh")) as f:
+    with open(os.path.join(CSRC, "flash_tc.cuh")) as f:
         src = f.read()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
-    sizes = TF.bwd_tile_sizes(torch.float16)
+    sizes = TF.tile_sizes(torch.float16)
+    assert sizes["flash_fwd"] == (const("K1_BQ"), const("K1_BK"))
     assert sizes["flash_bwd_dkdv"] == (const("K2_BQ"), const("K2_BK"))
     assert sizes["flash_bwd_dq"] == (const("K3_BQ"), const("K3_BK"))
 
@@ -201,8 +204,9 @@ def _emulate(q, k, v, do, lse, delta, seg, *, causal, seed, rate, dtype,
     K, Sk = k.shape[1], k.shape[2]
     G = N // K
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    sizes = TF.bwd_tile_sizes(dtype)
-    for name, (tq, tk) in sizes.items():
+    sizes = TF.tile_sizes(dtype)
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        tq, tk = sizes[name]
         if skip:
             tiles = TF.computed_tiles(S, Sk, tq, tk, causal=causal,
                                       segments=seg)
@@ -280,3 +284,124 @@ def test_torch_tile_emulation_matches_jax_backward(case):
     full = _emulate(tq_, tk_, tv_, tdo, lse, delta, tseg, skip=False, **kw)
     for a, b in zip(got, full):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# a tile-by-tile emulation of the 16-bit K1 arithmetic
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def _emulate_fwd(q, k, v, seg, *, causal, seed, rate, dtype, skip=True):
+    """(o in ``dtype``, lse fp32) as K1 computes them: per (q-tile, k-tile)
+    pair that the tile rule keeps (every pair when ``skip`` is False), fp32
+    scores scaled by log2(e) / sqrt(D), masked to NEG_INF, the online
+    softmax's m, l and corr (0 while m is NEG_INF), l over the undropped
+    p, and P rounded to ``dtype`` before P V (bf16 as hi + lo)."""
+    B, N, S, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = N // K
+    tq, tk = TF.tile_sizes(dtype)["flash_fwd"]
+    if skip:
+        tiles = TF.computed_tiles(S, Sk, tq, tk, causal=causal, segments=seg)
+    else:
+        tiles = torch.ones((1, -(-S // tq), -(-Sk // tk)), dtype=bool)
+    scale2 = 1.0 / math.sqrt(D) * LOG2E
+    o = torch.empty((B, N, S, D), dtype=dtype)
+    lse = torch.empty((B, N, S))
+    for b in range(B):
+        flags = tiles[min(b, tiles.shape[0] - 1)]
+        for n in range(N):
+            kh = n // G
+            for qt in range(flags.shape[0]):
+                q0, q1 = qt * tq, min(qt * tq + tq, S)
+                qpos = torch.arange(q0, q1)[:, None]
+                m = torch.full((q1 - q0,), TF.NEG_INF)
+                l = torch.zeros(q1 - q0)
+                acc = torch.zeros(q1 - q0, D)
+                for kt in flags[qt].nonzero()[:, 0].tolist():
+                    k0, k1 = kt * tk, min(kt * tk + tk, Sk)
+                    kpos = torch.arange(k0, k1)[None, :]
+                    ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
+                    if causal:
+                        ok &= qpos >= kpos
+                    if seg is not None:
+                        ok &= seg[b, q0:q1, None] == seg[b, None, k0:k1]
+                    t = torch.where(ok, (q[b, n, q0:q1] @ k[b, kh, k0:k1].T)
+                                    * scale2, TF.NEG_INF)
+                    new_m = torch.maximum(m, t.amax(1))
+                    corr = torch.where(m == TF.NEG_INF, 0.0,
+                                       torch.exp2(m - new_m))
+                    p = torch.where(ok, torch.exp2(t - new_m[:, None]), 0.0)
+                    l = l * corr + p.sum(1)
+                    m = new_m
+                    if rate > 0.0:
+                        keep = TF.keep_mask(seed, b * N + n, qpos, kpos, rate)
+                        p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+                    acc = (acc * corr[:, None]
+                           + _rounded_product(p, v[b, kh, k0:k1], dtype))
+                lf = l.clamp_min(1e-20)
+                o[b, n, q0:q1] = (acc / lf[:, None]).to(dtype)
+                lse[b, n, q0:q1] = torch.where(
+                    m == TF.NEG_INF, TF.NEG_INF, m * LN2) + torch.log(lf)
+    return o, lse
+
+
+FWD_EMU_CASES = {
+    "bf16_gqa_packed_dropout": dict(dtype=torch.bfloat16, seg="packed",
+                                    rate=0.1, seed=321),
+    "bf16_gqa_unsorted": dict(dtype=torch.bfloat16, seg="runs", rate=0.0,
+                              seed=None),
+    "fp16_gqa_packed_dropout": dict(dtype=torch.float16, seg="packed",
+                                    rate=0.2, seed=-5),
+    "fp16_causal_no_segments": dict(dtype=torch.float16, seg=None, rate=0.0,
+                                    seed=None),
+    "bf16_noncausal_sk_ne_s_dropout": dict(dtype=torch.bfloat16, seg=None,
+                                           rate=0.1, seed=9, causal=False,
+                                           Sk=136),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FWD_EMU_CASES))
+def test_torch_fwd_tile_emulation_matches_jax_forward(case):
+    """K1's arithmetic, emulated per tile at its tile sizes over the pairs
+    the tile rule keeps, against the JAX Pallas forward in interpret mode:
+    o within TOL_16 * (rms + |want|), lse within 1e-3 absolute (the limits
+    of chip_smoke.py phase 3). Skipped tiles leave o and lse bitwise as
+    computing them would."""
+    c = FWD_EMU_CASES[case]
+    dtype, rate, seed = c["dtype"], c["rate"], c["seed"]
+    causal = c.get("causal", True)
+    B, N, K, S, D = 2, 4, 2, 200, 16  # 4 q tiles, the last one ragged
+    Sk = c.get("Sk", S)
+    rng = np.random.default_rng(5)
+
+    def rnd(*shape):  # values the 16-bit type holds exactly
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return x.to(dtype).float().numpy()
+
+    q, k, v = rnd(B, N, S, D), rnd(B, K, Sk, D), rnd(B, K, Sk, D)
+    seg = {"packed": lambda: _packed(B, S),
+           "runs": lambda: _unsorted_runs(B, S, seed=4),
+           None: lambda: None}[c["seg"]]()
+    jseg = None if seg is None else jnp.asarray(seg)
+    jseed = None if seed is None else jnp.asarray([seed], jnp.int32)
+    o_j, lse_j = JF.flash_attention_hmajor(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jseg, jseed,
+        causal=causal, block_q=S, block_k=Sk, interpret=True,
+        dropout_rate=rate)
+    want_o = torch.from_numpy(np.array(o_j))
+    want_lse = torch.from_numpy(np.array(lse_j[..., 0]))
+    tq_, tk_, tv_ = (torch.from_numpy(x) for x in (q, k, v))
+    tseg = None if seg is None else torch.from_numpy(seg)
+    kw = dict(causal=causal, seed=seed, rate=rate, dtype=dtype)
+    o, lse = _emulate_fwd(tq_, tk_, tv_, tseg, **kw)
+    g = o.float()
+    limit = TOL_16 * (want_o.square().mean().sqrt() + want_o.abs())
+    assert ((g - want_o).abs() <= limit).all(), float(
+        ((g - want_o).abs() / limit).max())
+    assert float((lse - want_lse).abs().max()) <= 1e-3
+    o_all, lse_all = _emulate_fwd(tq_, tk_, tv_, tseg, skip=False, **kw)
+    assert torch.equal(o, o_all) and torch.equal(lse, lse_all)
