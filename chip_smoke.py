@@ -32,17 +32,30 @@ each of which ends the run with a non-zero exit when it fails:
    cases: ragged T, V not a multiple of 128, labels at -1 and V, a row of
    equal logits, a row stride larger than V, fp16, and the z-loss through
    the autograd composition;
+   At the Mixtral path's shapes: K1-K3 at B=2, N=32, K=8, S=4096, D=128
+   (bf16, causal, the segments of the path's first batch that packs
+   several documents in every row) and K4/K5 at T=8192, V=32000 (fp32);
 4. reference: small models trained a few steps on the card, the flash
    kernels against the plain attention core, and fused cross-entropy with
    per-layer remat and packed documents against the plain loss without
-   remat;
+   remat; a small Mixtral-shaped MoE model through the flash kernels, fused
+   CE and remat against the plain core and loss, and its dropless dispatch
+   against capacity dispatch with a capacity that drops nothing;
 5. main path of slice 1: ``hetu_galvatron_tpu_torch.cli.train_dist.train``
    on ``gpt2-small.yaml`` at full width and depth (bsz 8, seq 1024, bf16);
 6. main path of slice 2: ``train`` on ``qwen2.5-7b.yaml`` at full width cut
    to 4 layers (bsz 2, seq 4096, bf16, fused cross-entropy, remat on every
    layer) over a packed indexed corpus written from a seed, with
    end-of-document loss masking, 8 steps and an eval of the valid and test
-   splits.
+   splits;
+7. main path of slice 5: ``train`` on ``mixtral-8x7b.yaml`` at full width
+   cut to 2 layers (8 experts of SwiGLU 14336, top-2, capacity dispatch;
+   bsz 2, seq 4096, bf16, fused cross-entropy, remat on every layer) over a
+   seeded packed corpus in Mistral's vocabulary (eod 2), 8 steps and the
+   two evals. It checks every step's tokens per expert, prints the share of
+   slots each layer drops at capacity, and prints the MFU twice: by the
+   JAX formula (one expert's MLP a token) and by the FLOPs the step
+   executes (top-2 experts at capacity, dispatch and combine, remat).
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
@@ -53,7 +66,7 @@ The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
 and bound times measured at that path's shape. The row's own ``launches``
-and times are those of slice 2's path. K1-K3's blocks also carry the
+and times are those of slice 5's path. K1-K3's blocks also carry the
 measured part of the report above.
 """
 
@@ -80,6 +93,12 @@ QWEN_LAYERS = 4
 QT, QV = QB * QS, 152064  # rows and padded vocab of the path's logits
 QWEN_EOD = 151643  # Qwen's <|endoftext|>
 QWEN_TOKENIZER_VOCAB = 151665  # len() of the Qwen2.5 tokenizer
+# the slice-5 path: Mixtral-8x7B widths, 2 of 32 layers, bsz 2 at seq 4096
+MIXTRAL_YAML = os.path.join(CONFIGS, "mixtral-8x7b.yaml")
+MB, MN, MK, MS, MD = 2, 32, 8, 4096, 128
+MIXTRAL_LAYERS = 2
+MT, MV = MB * MS, 32000  # rows and vocab of the path's logits
+MEM_LIMIT_GIB = 79.0  # the card's 80 GB less what CUDA itself holds
 TRAIN_ITERS = 8
 BIG_REPS = 5  # timing repetitions at the Qwen path's shapes
 PROFILE_WARMUP = 2
@@ -314,8 +333,11 @@ def check_case(tag, *, b, n, kv, s, sk, d, dtype, causal, seg, rate,
     else:
         qh, kh, vh = rnd(b, n, s, d), rnd(b, kv, sk, d), rnd(b, kv, sk, d)
         doh = rnd(b, n, s, d)
-    segs = (segments_for(b, s, dev, seg if isinstance(seg, str) else
-                         "packed") if seg else None)
+    if isinstance(seg, torch.Tensor):  # a path's own segment ids
+        segs = seg.to(dev, torch.int32)
+    else:
+        segs = (segments_for(b, s, dev, seg if isinstance(seg, str) else
+                             "packed") if seg else None)
     dseed = seed if rate > 0 else None
     kw = dict(causal=causal, dropout_rate=rate)
     args = (qh, kh, vh)
@@ -786,6 +808,249 @@ def qwen_path(peak_flops: float, tmp: str):
     return summary
 
 
+def reference_run_moe(tmp: str):
+    """A small Mixtral-shaped model (8 experts, top-2, capacity dispatch,
+    GQA 4:2), 3 steps in fp32 on a packed corpus in Mistral's id layout:
+    the flash kernels, fused cross-entropy and remat on every layer against
+    the plain attention core and loss without remat, within 1e-4 relative;
+    then, both through the kernels, dropless dispatch against capacity
+    dispatch at a capacity factor of E / K (every expert has a slot for
+    every token, so nothing drops), within 1e-5."""
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import (
+        packed_corpus_overrides,
+        write_random_corpus,
+    )
+
+    prefix = os.path.join(tmp, "small_moe_corpus")
+    write_random_corpus(prefix, docs=300, mean_len=200, vocab=4096, eod=2,
+                        tokenizer_vocab=4096, ids=(3, 4096), seed=2)
+    over = ["model.hidden_size=256", "model.num_hidden_layers=2",
+            "model.num_attention_heads=4", "model.num_key_value_heads=2",
+            "model.ffn_hidden_size=512", "model.vocab_size=4096",
+            "model.seq_length=320", "parallel.global_train_batch_size=4",
+            "train.train_iters=3", "parallel.mixed_precision=fp32",
+            "train.lr=1e-3", *packed_corpus_overrides(prefix)]
+    kernels = ["model.use_flash_attn=true", "model.use_fused_ce=true",
+               "parallel.global_checkpoint=1"]
+    runs = {}
+    for tag, extra in (
+            ("kernels", kernels),
+            ("plain", ["model.use_flash_attn=false",
+                       "model.use_fused_ce=false"]),
+            ("dropless", kernels + ["model.moe_dispatcher=dropless"]),
+            ("uncapped", kernels + ["model.moe_capacity_factor=4.0"])):
+        runs[tag] = train(load_config(MIXTRAL_YAML, over + extra))["losses"]
+        log(f"  MoE {tag:<9} losses {runs[tag]}")
+    for a_tag, b_tag, tol in (("kernels", "plain", 1e-4),
+                              ("dropless", "uncapped", 1e-5)):
+        for a, b in zip(runs[a_tag], runs[b_tag]):
+            if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+                raise SmokeFailure(f"MoE {a_tag} run {runs[a_tag]} departs "
+                                   f"from the {b_tag} run {runs[b_tag]}")
+    return runs
+
+
+def mixtral_config(prefix: str):
+    """Slice 5's path: mixtral-8x7b.yaml at its widths, 2 layers, bsz 2 at
+    seq 4096, bf16, fused CE, remat on every layer, over the corpus at
+    ``prefix``; 8 steps, an eval of the valid split after the last and one
+    of the test split."""
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+
+    return load_config(MIXTRAL_YAML, [
+        f"model.num_hidden_layers={MIXTRAL_LAYERS}", "model.use_fused_ce=true",
+        "parallel.global_checkpoint=1", "parallel.mixed_precision=bf16",
+        f"parallel.global_train_batch_size={MB}",
+        f"train.train_iters={TRAIN_ITERS}",
+        f"train.eval_interval={TRAIN_ITERS}", "train.eval_iters=1",
+        "profile.profile=1", f"profile.profile_warmup={PROFILE_WARMUP}",
+        *packed_corpus_overrides(prefix)])
+
+
+def mixtral_corpus(tmp: str):
+    """The seeded packed corpus of slice 5's path, in Mistral's vocabulary
+    (ordinary ids 3..31999, eod 2), and the segment ids [MB, MS] of the
+    path's first training batch whose every row packs several documents
+    (the very first holds one long document a row)."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.data.synthetic import (
+        corpus_tokenizer,
+        write_random_corpus,
+    )
+    from hetu_galvatron_tpu_torch.runtime.dataloader import get_data_iterator
+
+    prefix = os.path.join(tmp, "mixtral_corpus")
+    corpus = write_random_corpus(prefix, docs=600, mean_len=1500,
+                                 **corpus_tokenizer("mixtral-8x7b"))
+    batches = get_data_iterator(mixtral_config(prefix), split="train")
+    for step in range(TRAIN_ITERS):
+        segs = torch.from_numpy(next(batches)["segment_ids"])
+        docs = [int(r.max()) + 1 for r in segs]
+        if min(docs) > 1:
+            break
+    else:
+        raise SmokeFailure("no training batch of the Mixtral path packs "
+                           "several documents in every row")
+    log(f"  Mixtral corpus: {corpus['documents']} documents, "
+        f"{corpus['tokens']} tokens; the batch of step {step} packs {docs} "
+        "documents a row")
+    return prefix, corpus, segs, step
+
+
+def mixtral_step_flops(cfg, tokens: int, capacity: int) -> float:
+    """FLOPs a training step of slice 5's path executes. Per layer
+    forward: the qkv and output projections, q.k and p.v over the causal
+    triangle (an upper bound: the kernels skip tiles across packed
+    documents), the router, every expert's E x C slots through win and
+    wout, and the dense dispatch and combine products over [T, E x C].
+    Under full remat a layer runs its forward twice (first pass and
+    recompute) and a backward of twice the forward, less the dispatch
+    product's half: the 0/1 dispatch matrix takes no gradient. Plus the
+    head's forward and backward."""
+    h, s = cfg.hidden_size, cfg.seq_length
+    nq, nkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    e, f = cfg.num_experts, cfg.moe_ffn_hidden_size or cfg.ffn_dim
+    ec = e * capacity
+    dispatch = 2 * tokens * ec * h
+    fwd = 2 * tokens * h * (nq + 2 * nkv) * hd + 2 * tokens * nq * hd * h
+    fwd += 2 * 2 * (tokens // s) * nq * hd * s * (s + 1) / 2
+    fwd += 2 * tokens * h * e
+    fwd += 2 * ec * h * 2 * f + 2 * ec * f * h
+    fwd += dispatch + 2 * tokens * ec * h  # dispatch, combine
+    return (cfg.num_hidden_layers * (4 * fwd - dispatch)
+            + 3 * 2 * tokens * h * cfg.padded_vocab_size)
+
+
+def mixtral_path(peak_flops: float, prefix: str, corpus):
+    """Slice 5's main path (see :func:`mixtral_config`). Launch counts
+    reset just before and read just after; every step's router statistics
+    read through ``train``'s ``on_step``."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.models.builder import (
+        model_flops_per_token,
+        named_leaves,
+    )
+    from hetu_galvatron_tpu_torch.models.moe import moe_capacity
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    samples = split_samples(prefix, "98,1,1", MS)
+    log(f"  samples of {MS + 1} tokens per split (train, valid, test): "
+        f"{samples}")
+    if min(samples[1:]) < 1:
+        raise SmokeFailure(f"an eval split holds no {MS + 1}-token sample: "
+                           f"{samples}")
+    args = mixtral_config(prefix)
+    cfg = args.model
+    L, E, K, evals = cfg.num_hidden_layers, cfg.num_experts, cfg.moe_topk, 2
+    C = moe_capacity(cfg, MT)
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L,
+                "ce_fwd": 1, "ce_bwd": 1}
+    per_eval = {"flash_fwd": L, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                "ce_fwd": 1, "ce_bwd": 0}
+    want = {k: per_step[k] * TRAIN_ITERS + per_eval[k] * evals
+            for k in per_step}
+    tpe = []  # per step: {layer: tokens per expert}
+
+    def on_step(it, metrics):
+        tpe.append({name: st["tokens_per_expert"].tolist()
+                    for name, st in metrics["moe"].items()})
+
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = sum(t.numel() for _, t in named_leaves(out.pop("params")))
+    losses = out["losses"]
+    log(f"  losses {losses}; validation {out['val_losses']}; test "
+        f"{out['test_loss']}")
+    evals_seen = [v["loss"] for v in out["val_losses"]] + [out["test_loss"]]
+    if (len(losses) != TRAIN_ITERS or len(evals_seen) != evals
+            or not all(map(math.isfinite, losses + evals_seen))):
+        raise SmokeFailure(f"losses {losses} / evals {evals_seen} not all "
+                           "finite")
+    # ln V + sigma^2 / 2 of an untied random head (as phase 6) plus each
+    # layer's balanced aux loss, coeff * E * sum_e (K / E) (1 / E) = coeff K
+    ln_v = math.log(cfg.padded_vocab_size)
+    expect0 = (ln_v + 0.5 * 0.02 ** 2 * cfg.hidden_size
+               + L * cfg.moe_aux_loss_coeff * K)
+    if abs(losses[0] - expect0) > 0.5:
+        raise SmokeFailure(f"step-0 loss {losses[0]:.4f} is not within 0.5 "
+                           f"of ln V + sigma^2/2 + L coeff K = {expect0:.4f}")
+    log(f"  launches {launches} (want {want}: {L} layers, {TRAIN_ITERS} "
+        f"steps with remat, {evals} no-grad evals)")
+    if launches != want:
+        raise SmokeFailure(f"launches {launches}, want {want}")
+    if len(tpe) != TRAIN_ITERS or any(
+            sorted(st) != [f"layer{i}" for i in range(L)] for st in tpe):
+        raise SmokeFailure(f"router stats of {len(tpe)} steps: {tpe[:1]}")
+    dropped = []
+    for it, st in enumerate(tpe):
+        for name, counts in st.items():
+            if sum(counts) != MT * K:
+                raise SmokeFailure(f"step {it} {name}: tokens per expert "
+                                   f"{counts} sum to {sum(counts)}, not "
+                                   f"T K = {MT * K}")
+        dropped.append({name: sum(max(c - C, 0) for c in counts) / (MT * K)
+                        for name, counts in st.items()})
+    for it, (st, dr) in enumerate(zip(tpe, dropped)):
+        log(f"  step {it}: " + "; ".join(
+            f"{name} tokens/expert {[int(c) for c in st[name]]} dropped "
+            f"{100 * dr[name]:.2f}% of slots at C={C}" for name in sorted(st)))
+    if peak_gib >= MEM_LIMIT_GIB:
+        raise SmokeFailure(f"peak memory {peak_gib:.1f} GiB is not under "
+                           f"{MEM_LIMIT_GIB} GiB")
+    step_launches = {k: (launches[k] - per_eval[k] * evals) / TRAIN_ITERS
+                     for k in launches}
+    eval_launches = {k: per_eval[k] * evals for k in launches}
+    step_ms = out["iter_ms"]
+    tok_s = MT / (step_ms / 1e3)
+    fpt = model_flops_per_token(cfg)
+    mfu_jax = tok_s * fpt / peak_flops
+    step_flops = mixtral_step_flops(cfg, MT, C)
+    mfu_exec = step_flops / (step_ms / 1e3) / peak_flops
+    summary = dict(
+        model=cfg.model_name, layers=L, hidden=cfg.hidden_size,
+        experts=E, topk=K, expert_ffn=cfg.moe_ffn_hidden_size or cfg.ffn_dim,
+        dispatcher=cfg.moe_dispatcher, capacity=C,
+        heads=f"{cfg.num_attention_heads}:{cfg.kv_heads}",
+        vocab=cfg.padded_vocab_size, global_batch=MB, seq=cfg.seq_length,
+        dtype=args.parallel.mixed_precision, fused_ce=True,
+        remat=cfg.remat_policy, params=params, steps=TRAIN_ITERS,
+        timed_steps=TRAIN_ITERS - PROFILE_WARMUP, step_ms=step_ms,
+        tokens_per_s=tok_s, model_flops_per_token=fpt, mfu_jax_formula=mfu_jax,
+        executed_flops_per_step=step_flops, mfu_executed=mfu_exec,
+        peak_tflops=peak_flops / 1e12, wall_s=wall, peak_mem_gb=peak_gib,
+        losses=losses, expected_step0_loss=expect0,
+        val_losses=out["val_losses"], test_loss=out["test_loss"],
+        launches=launches, launches_per_step=step_launches,
+        eval_launches=eval_launches, tokens_per_expert=tpe,
+        dropped_share=dropped, corpus=dict(corpus, samples_per_split=samples))
+    log(f"  step {step_ms:.2f} ms (mean of steps {PROFILE_WARMUP}.."
+        f"{TRAIN_ITERS - 1}, CUDA events), {tok_s:.0f} tokens/s, peak memory "
+        f"{peak_gib:.1f} GiB, {params} parameters")
+    log(f"  MFU (a), JAX formula (model_flops_per_token: one dense MLP of "
+        f"ffn a token, not the top-{K} experts; not the card's efficiency): "
+        f"{100 * mfu_jax:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
+        f"({fpt / 1e9:.3f} GFLOP/token)")
+    log(f"  MFU (b), executed FLOPs (experts at capacity C={C}, dispatch and "
+        f"combine, remat recompute, causal attention): {100 * mfu_exec:.2f}% "
+        f"({step_flops / 1e12:.2f} TFLOP a step, "
+        f"{step_flops / MT / 1e9:.3f} GFLOP/token)")
+    log("mixtral path: " + json.dumps(summary))
+    return summary
+
+
 def main_path(peak_flops: float):
     """GPT-2 small training through the port's train_dist, launch counts
     reset just before and read just after."""
@@ -888,27 +1153,31 @@ def flash_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
                 pair_beats_library=pair < library)
 
 
-def check_qwen_flash(peak_flops, peak_bytes, fp16_ms):
-    """K1-K3 at the Qwen path's attention shape (bf16, causal, packed
-    segments, q/k/v as views of the fused qkv projection): checked against
-    the plain versions and timed; the inputs are released on return."""
+def check_path_flash(label, tag, shape, segs, peak_flops, peak_bytes,
+                     fp16_ms=None):
+    """K1-K3 at a path's attention shape ``(b, n, kv, s, d)`` (bf16,
+    causal, packed ``segs``, True for three documents a row, q/k/v as views
+    of the fused qkv projection): checked against the plain versions and
+    timed beside the fp16 times ``fp16_ms`` when given; the inputs are
+    released on return."""
     import torch
 
-    tag = f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} bf16 seg"
-    res, inputs = check_case(tag, b=QB, n=QN, kv=QK, s=QS, sk=QS, d=QD,
-                             dtype=torch.bfloat16, causal=True, seg=True,
+    b, n, kv, s, d = shape
+    res, inputs = check_case(tag, b=b, n=n, kv=kv, s=s, sk=s, d=d,
+                             dtype=torch.bfloat16, causal=True, seg=segs,
                              rate=0.0, layout="fused")
     times, lib = time_kernels(inputs, reps=BIG_REPS)
-    bnd = bounds(QB, QN, QK, QS, QD, 2, peak_flops, peak_bytes,
-                 segs=inputs[2])
-    log_times("Qwen shape", times, lib, bnd)
-    report = flash_report("Qwen shape", times, lib, bnd, b=QB, s=QS,
+    bnd = bounds(b, n, kv, s, d, 2, peak_flops, peak_bytes, segs=inputs[2])
+    log_times(label, times, lib, bnd)
+    report = flash_report(label, times, lib, bnd, b=b, s=s,
                           dtype=torch.bfloat16, segs=inputs[2])
-    log(f"  Qwen shape: K1 bf16 {times['flash_fwd'][0]:.3f} ms (P as hi + "
-        f"lo) against fp16 {fp16_ms['flash_fwd']:.3f} ms (one rounding)")
-    log(f"  Qwen shape: K2 + K3 bf16 {report['pair_ms']:.3f} ms (P and dS "
-        f"as hi + lo) against fp16 "
-        f"{sum(fp16_ms[k] for k in BWD):.3f} ms (one rounding)")
+    if fp16_ms is not None:
+        log(f"  {label}: K1 bf16 {times['flash_fwd'][0]:.3f} ms (P as hi + "
+            f"lo) against fp16 {fp16_ms['flash_fwd']:.3f} ms (one "
+            "rounding)")
+        log(f"  {label}: K2 + K3 bf16 {report['pair_ms']:.3f} ms (P and "
+            f"dS as hi + lo) against fp16 "
+            f"{sum(fp16_ms[k] for k in BWD):.3f} ms (one rounding)")
     timing = {k: dict(ms=times[k][0], plain_ms=times[k][1],
                       library_ms=lib[k], bound_ms=bnd[k]["bound_ms"],
                       bound_by=bnd[k]["bound_by"], flops=bnd[k]["flops"],
@@ -919,9 +1188,9 @@ def check_qwen_flash(peak_flops, peak_bytes, fp16_ms):
 
 
 def check_ce(peak_bytes):
-    """K4/K5 against their plain versions at the path's logits (fp32, the
-    path's dtype, and bf16) and on the small cases; timed at the path's
-    shape in both dtypes."""
+    """K4/K5 against their plain versions at the Qwen path's logits (fp32,
+    the path's dtype, and bf16), at the Mixtral path's (fp32) and on the
+    small cases; timed at the paths' shapes."""
     import torch
 
     checks = {"ce_fwd": [], "ce_bwd": []}
@@ -943,6 +1212,21 @@ def check_ce(peak_bytes):
                                bound_by=bnd[k]["bound_by"],
                                flops=bnd[k]["flops"], bytes=bnd[k]["bytes"])
                        for k in times}
+    # the Mixtral path's logits, in its dtype
+    tag = f"mixtral T={MT} V={MV} fp32"
+    res, inputs = check_ce_case(tag, MT, MV, torch.float32, seed=12)
+    for k, recs in res.items():
+        checks[k] += [dict(r, case="mixtral fp32") for r in recs]
+    times, lib = time_ce(inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    bnd = ce_bounds(MT, MV, 4, peak_bytes, peak_fp32)
+    log_times(f"T={MT} V={MV} fp32", times, lib, bnd)
+    timing["mixtral fp32"] = {
+        k: dict(ms=times[k][0], plain_ms=times[k][1], library_ms=lib[k],
+                bound_ms=bnd[k]["bound_ms"], bound_by=bnd[k]["bound_by"],
+                flops=bnd[k]["flops"], bytes=bnd[k]["bytes"])
+        for k in times}
     small = [("ragged T=77 V=1000 fp32", dict(t=77, v=1000,
                                               dtype=torch.float32)),
              ("ragged T=77 V=1000 bf16", dict(t=77, v=1000,
@@ -1095,32 +1379,54 @@ def main() -> int:
     gpt2_rep = flash_report("GPT-2 shape", times, lib, bnd, b=B, s=S,
                             dtype=torch.bfloat16)
     del slice_inputs
-    qwen_flash = check_qwen_flash(peak_flops, peak_bytes, fp16_ms)
+    qwen_flash = check_path_flash(
+        "Qwen shape", f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} bf16 seg",
+        (QB, QN, QK, QS, QD), True, peak_flops, peak_bytes, fp16_ms)
     for name_k, recs in qwen_flash["checks"].items():
+        checks[name_k] += recs
+    # removed at exit, also when a phase fails
+    tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = tmpdir.name
+    mixtral_prefix, mixtral_stats, mixtral_segs, seg_step = mixtral_corpus(
+        tmp)
+    mixtral_flash = check_path_flash(
+        "Mixtral shape",
+        f"mixtral B={MB} N={MN} K={MK} S={MS} D={MD} bf16 step-{seg_step} "
+        "segments", (MB, MN, MK, MS, MD), mixtral_segs, peak_flops,
+        peak_bytes)
+    for name_k, recs in mixtral_flash["checks"].items():
         checks[name_k] += recs
     ce = check_ce(peak_bytes)
     for name_k, recs in ce["checks"].items():
         checks[name_k] += recs
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        phase("phase 4: reference runs (flash against the plain core; fused "
-              "CE + remat against the plain loss)")
-        reference_run()
-        reference_run_ce(tmp)
+    phase("phase 4: reference runs (flash against the plain core; fused CE "
+          "+ remat against the plain loss; MoE: both, and dropless against "
+          "capacity)")
+    reference_run()
+    reference_run_ce(tmp)
+    reference_run_moe(tmp)
 
-        phase("phase 5: main path of slice 1 (train_dist, GPT-2 small)")
-        gpt2 = main_path(peak_flops)
-        torch.cuda.empty_cache()
+    phase("phase 5: main path of slice 1 (train_dist, GPT-2 small)")
+    gpt2 = main_path(peak_flops)
+    torch.cuda.empty_cache()
 
-        phase("phase 6: main path of slice 2 (train_dist, Qwen2.5-7B "
-              "widths, 4 layers)")
-        qwen = qwen_path(peak_flops, tmp)
+    phase("phase 6: main path of slice 2 (train_dist, Qwen2.5-7B widths, 4 "
+          "layers)")
+    qwen = qwen_path(peak_flops, tmp)
+    torch.cuda.empty_cache()
+
+    phase("phase 7: main path of slice 5 (train_dist, Mixtral-8x7B widths, "
+          "2 layers)")
+    mixtral = mixtral_path(peak_flops, mixtral_prefix, mixtral_stats)
+    tmpdir.cleanup()
 
     # one block per path that runs the kernel: its launches beside the
     # times measured at that path's shape; the row's own keys are those of
-    # this slice's path (Qwen2.5-7B widths)
+    # this slice's path (Mixtral-8x7B widths)
     qwen_name = f"qwen2.5-7b-{QWEN_LAYERS}-layers"
+    mixtral_name = f"mixtral-8x7b-{MIXTRAL_LAYERS}-layers"
 
     def max_err(k, case, kinds=("elementwise", "abs", "exact")):
         return max(c["max_abs_err"] for c in checks[k]
@@ -1146,12 +1452,16 @@ def main() -> int:
                 k, gpt2, gpt2_timing,
                 max_err(k, "slice bf16", ("elementwise",)),
                 f"B={B} N=K={N} S={S} D={D} bf16 causal")
-            timing = qwen_flash["timing"][k]
-            paths[qwen_name] = block(
-                k, qwen, timing, max_err(k, timing["shape"], ("elementwise",)),
-                timing["shape"])
+            for path, run, res in ((qwen_name, qwen, qwen_flash),
+                                   (mixtral_name, mixtral, mixtral_flash)):
+                timing = res["timing"][k]
+                paths[path] = block(
+                    k, run, timing,
+                    max_err(k, timing["shape"], ("elementwise",)),
+                    timing["shape"])
             for path, rep in (("gpt2-small", gpt2_rep),
-                              (qwen_name, qwen_flash["report"])):
+                              (qwen_name, qwen_flash["report"]),
+                              (mixtral_name, mixtral_flash["report"])):
                 paths[path].update(rep[k])
                 if k in BWD:
                     paths[path].update(
@@ -1166,13 +1476,17 @@ def main() -> int:
                 k, qwen, ce["timing"]["fp32"][k],
                 max_err(k, "qwen fp32"),
                 f"T={QT} V={QV} fp32 logits (the path's dtype)")
+            paths[mixtral_name] = block(
+                k, mixtral, ce["timing"]["mixtral fp32"][k],
+                max_err(k, "mixtral fp32"),
+                f"T={MT} V={MV} fp32 logits (the path's dtype)")
             tol_rule = ("gold bit-equal, lse within 1e-4 absolute, dlogits "
                         "every element within tol * (rms(want) + |want|): "
                         "1e-4 in fp32, 2e-2 in bf16/fp16")
             tol, extra = TOL_FP32, {"bf16": ce["timing"]["bf16"][k]}
         row = dict(name=k, route=meta["route"], source=meta["source"],
                    replaces=meta["replaces"],
-                   library_call=meta["library_call"], **paths[qwen_name],
+                   library_call=meta["library_call"], **paths[mixtral_name],
                    tol=tol, tol_rule=tol_rule, paths=paths, **extra)
         row["checks"] = checks[k]
         rows.append(row)

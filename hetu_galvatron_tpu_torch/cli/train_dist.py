@@ -9,8 +9,10 @@ the port's ``flash_sdpa`` (the CUDA kernels K1-K3), the counterpart of the
 JAX launcher choosing the Pallas kernel on a TPU; ``model.use_fused_ce``
 runs the loss through ``fused_ce_nll`` (K4/K5) and
 ``parallel.global_checkpoint`` remats every layer under
-``model.remat_policy``. The run goes to the GPU unless ``device=cpu`` is
-given.
+``model.remat_policy``. A config with ``model.num_experts`` (Mixtral) runs
+its MoE layers and returns their router statistics in each step's
+``metrics["moe"]``, which the iteration log prints per layer. The run goes
+to the GPU unless ``device=cpu`` is given.
 
 Flags outside this slice raise with their name rather than being ignored.
 """
@@ -117,11 +119,14 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         state.log(f"per-layer remat ({cfg.remat_policy}) on "
                   f"{sum(hpc.checkpoint_flags)} of "
                   f"{len(hpc.checkpoint_flags)} layers")
-    loss_fn = make_loss_fn(cfg, compute_dtype=compute_dtype,
-                           remat_flags=hpc.checkpoint_flags,
-                           layer_overrides=overrides)
-    step = make_train_step(loss_fn, tx, chunks=hpc.chunks)
-    opt_state = tx.init([t for _, t in named_leaves(params)])
+    moe = bool(cfg.num_experts)
+    loss_kw = dict(compute_dtype=compute_dtype,
+                   remat_flags=hpc.checkpoint_flags, layer_overrides=overrides)
+    loss_fn = make_loss_fn(cfg, **loss_kw)
+    step = make_train_step(make_loss_fn(cfg, with_moe_stats=moe, **loss_kw),
+                           tx, chunks=hpc.chunks, aux_stats=moe)
+    names, leaves = zip(*named_leaves(params))
+    opt_state = tx.init(list(leaves), names)
     profiler = RuntimeProfiler(args, device=device)
     use_dropout = cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0
 

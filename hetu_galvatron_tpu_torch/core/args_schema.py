@@ -46,9 +46,22 @@ class ModelArgs:
     scale_embeddings: bool = False
     head_dim_override: Optional[int] = None
     make_vocab_size_divisible_by: int = 128
-    num_experts: int = 0
     add_bias_linear: bool = True
     add_qkv_bias: bool = False
+    # MoE (models/moe.py)
+    num_experts: int = 0  # 0: a dense model
+    moe_topk: int = 2
+    moe_ffn_hidden_size: Optional[int] = None
+    num_shared_experts: int = 0
+    moe_aux_loss_coeff: float = 1e-2
+    moe_z_loss_coeff: float = 0.0
+    moe_router_dtype: str = "float32"
+    moe_layer_freq: int = 1  # every k-th layer is MoE
+    moe_dispatcher: str = "capacity"
+    moe_capacity_factor: float = 1.25
+    moe_router_type: str = "topk"
+    moe_router_enable_expert_bias: bool = False
+    moe_expert_bias_update_rate: float = 1e-3
 
     CHOICES: ClassVar[Dict[str, Tuple]] = {
         "model_type": ("gpt", "llama", "bert", "t5", "moe"),
@@ -58,6 +71,9 @@ class ModelArgs:
         "norm_position": (None, "pre", "post"),
         "position_embedding_type": ("learned", "rope"),
         "remat_policy": ("full", "dots", "dots_no_batch"),
+        "moe_router_dtype": ("float32", "bfloat16"),
+        "moe_dispatcher": ("capacity", "dropless"),
+        "moe_router_type": ("topk", "sinkhorn"),
     }
 
     @property
@@ -206,11 +222,7 @@ class SupervisorArgs:
 # config naming them loads, the values are dropped
 JAX_ONLY_KEYS: Dict[str, frozenset] = {
     "model": frozenset({
-        "num_encoder_layers", "untie_streams", "moe_topk", "moe_ffn_hidden_size",
-        "num_shared_experts", "moe_aux_loss_coeff", "moe_z_loss_coeff",
-        "moe_router_dtype", "moe_layer_freq", "moe_dispatcher",
-        "moe_capacity_factor", "moe_router_type",
-        "moe_router_enable_expert_bias", "moe_expert_bias_update_rate"}),
+        "num_encoder_layers", "untie_streams"}),
     "parallel": frozenset({
         "global_tp_consec", "cp_zigzag", "global_etp_deg", "default_dp_type",
         "vocab_tp", "vocab_sp", "vocab_cp", "embed_sdp", "pipeline_type",

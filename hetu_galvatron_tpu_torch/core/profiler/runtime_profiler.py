@@ -3,8 +3,11 @@
 Counterpart of ``hetu_galvatron_tpu/core/profiler/runtime_profiler.py``
 (``time_start``, ``time_end``, ``filtered_time_ms``, ``iteration_log``). On
 the GPU an iteration is timed with CUDA events recorded on the current
-stream around the step; on the CPU with the host clock. Trace capture,
-memory probes and the profile JSON writers are not ported yet.
+stream around the step; on the CPU with the host clock. The iteration log
+carries the per-layer MoE balance tracker (``moe[layerN] aux .. z ..
+imb ..``) as the JAX log does; its registry gauges (``moe/aux_loss``,
+``moe/z_loss``, ``moe/imbalance``) wait for the observability slice, as do
+trace capture, memory probes and the profile JSON writers.
 """
 
 from __future__ import annotations
@@ -80,6 +83,13 @@ class RuntimeProfiler:
             bits.append(f"lr {lr:.3e}")
         if self.time_samples:
             bits.append(f"iter-time {self.time_samples[-1]:.1f}ms")
+        for name in sorted(metrics.get("moe", {})):
+            # per-layer balance: aux and z loss, tokens-per-expert max/mean
+            st = metrics["moe"][name]
+            tpe = st["tokens_per_expert"].detach().cpu().double().numpy()
+            imb = float(tpe.max() / max(tpe.mean(), 1e-9))
+            aux, z = float(st["load_balance_loss"]), float(st["z_loss"])
+            bits.append(f"moe[{name}] aux {aux:.3e} z {z:.3e} imb {imb:.2f}")
         line = " | ".join(bits)
         print(line, flush=True)
         return line

@@ -3,7 +3,10 @@
 Counterpart of ``hetu_galvatron_tpu/models/builder.py``. The parameter tree
 has the JAX package's structure (``embed``, ``layers[i]``, ``prenorm``,
 ``head``) with fp32 tensors as leaves; ``layer_overrides`` swaps per-layer
-keyword arguments (the ``sdpa_fn`` seam) as there.
+keyword arguments (the ``sdpa_fn`` seam) as there. With ``num_experts``,
+every ``moe_layer_freq``-th layer holds ``moe`` (``models/moe.py``) in place
+of ``mlp``; its aux loss joins the loss and its router statistics come back
+per layer.
 """
 
 from __future__ import annotations
@@ -15,13 +18,13 @@ import torch
 
 from hetu_galvatron_tpu_torch.core.args_schema import ModelArgs
 from hetu_galvatron_tpu_torch.models import modules as M
+from hetu_galvatron_tpu_torch.models.moe import (
+    apply_moe_decoder_layer,
+    init_moe_mlp,
+    is_moe_layer,
+)
 
 Params = Dict[str, Any]
-
-
-def _normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    return t.normal_(0.0, std, generator=gen)
 
 
 def _norm_params(cfg: ModelArgs, device) -> Params:
@@ -34,38 +37,39 @@ def _norm_params(cfg: ModelArgs, device) -> Params:
 def init_causal_lm(cfg: ModelArgs, seed: int = 1234,
                    device: torch.device | str = "cpu") -> Params:
     """Random init in the JAX package's scheme: normal(0.02) weights, the
-    residual projections ``wo`` and ``wout`` scaled by 1/sqrt(2L), zero
-    biases, unit norm scales. Numbers differ from the JAX init (another
-    generator); carry JAX weights over with ``runtime.checkpoint``."""
+    residual projections ``wo`` and ``wout`` (the experts' too) scaled by
+    1/sqrt(2L), zero biases, unit norm scales. Numbers differ from the JAX
+    init (another generator); carry JAX weights over with
+    ``runtime.checkpoint``."""
     M.check_model_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     h, hd, L = cfg.hidden_size, cfg.head_dim, cfg.num_hidden_layers
-    nq, nkv, f = cfg.num_attention_heads, cfg.kv_heads, cfg.ffn_dim
+    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
     resid_std = 0.02 / math.sqrt(2 * L)
-    fin = 2 * f if M.is_gated(cfg.hidden_act) else f
-    embed = {"wte": _normal(gen, (cfg.padded_vocab_size, h), 0.02, device)}
+    embed = {"wte": M.normal(gen, (cfg.padded_vocab_size, h), 0.02, device)}
     if cfg.position_embedding_type == "learned":
-        embed["wpe"] = _normal(gen, (cfg.max_position_embeddings, h), 0.02,
-                               device)
+        embed["wpe"] = M.normal(gen, (cfg.max_position_embeddings, h),
+                                0.02, device)
     layers = []
-    for _ in range(L):
-        attn = {"wqkv": _normal(gen, (h, (nq + 2 * nkv) * hd), 0.02, device),
-                "wo": _normal(gen, (nq * hd, h), resid_std, device)}
+    for i in range(L):
+        attn = {"wqkv": M.normal(gen, (h, (nq + 2 * nkv) * hd), 0.02,
+                                 device),
+                "wo": M.normal(gen, (nq * hd, h), resid_std, device)}
         if cfg.add_qkv_bias:
             attn["bqkv"] = torch.zeros((nq + 2 * nkv) * hd, device=device)
         if cfg.add_bias_linear:
             attn["bo"] = torch.zeros(h, device=device)
-        mlp = {"win": _normal(gen, (h, fin), 0.02, device),
-               "wout": _normal(gen, (f, h), resid_std, device)}
-        if cfg.add_bias_linear:
-            mlp["bin"] = torch.zeros(fin, device=device)
-            mlp["bout"] = torch.zeros(h, device=device)
-        layers.append({"ln1": _norm_params(cfg, device), "attn": attn,
-                       "ln2": _norm_params(cfg, device), "mlp": mlp})
+        layer = {"ln1": _norm_params(cfg, device), "attn": attn,
+                 "ln2": _norm_params(cfg, device)}
+        if is_moe_layer(cfg, i):
+            layer["moe"] = init_moe_mlp(gen, cfg, device)
+        else:
+            layer["mlp"] = M.init_mlp(gen, cfg, device)
+        layers.append(layer)
     head = ({} if cfg.tie_word_embeddings else
-            {"whead": _normal(gen, (h, cfg.padded_vocab_size), 0.02,
-                              device)})
+            {"whead": M.normal(gen, (h, cfg.padded_vocab_size), 0.02,
+                               device)})
     params = {"embed": embed, "layers": layers,
               "prenorm": _norm_params(cfg, device), "head": head}
     for _, t in named_leaves(params):
@@ -97,8 +101,11 @@ def forward_causal_lm(
     dropout_rng: Optional[torch.Generator] = None,
     position_ids: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """tokens [B, S] -> fp32 logits [B, S, V].
+    with_aux: bool = False,
+):
+    """tokens [B, S] -> fp32 logits [B, S, V]; with ``with_aux``, (logits,
+    the MoE layers' summed aux loss, router stats by ``layer{i}``), where
+    the aux loss is None without MoE layers (JAX adds a zero there).
 
     ``position_ids`` / ``segment_ids`` [B, S] are the packed-document fields
     (reset_position_ids / reset_attention_mask): rope rows (or ``wpe`` rows)
@@ -126,24 +133,35 @@ def forward_causal_lm(
                           compute_dtype=compute_dtype,
                           dropout_rng=M.generator_from_seed(seeds[n], device),
                           position_ids=position_ids)
+    aux_total = None
+    moe_stats: Dict[str, Dict[str, torch.Tensor]] = {}
     for i, lp in enumerate(params["layers"]):
         kwargs: Dict[str, Any] = dict(rope=rope, compute_dtype=compute_dtype,
                                       segment_ids=segment_ids)
         if layer_overrides and i in layer_overrides:
             kwargs.update(layer_overrides[i])
+        apply = apply_moe_decoder_layer if "moe" in lp \
+            else M.apply_decoder_layer
 
-        def layer(p, h, seed=seeds[i], kw=kwargs):
-            return M.apply_decoder_layer(
-                p, h, cfg, dropout_rng=M.generator_from_seed(seed, device),
-                **kw)
+        def layer(p, h, seed=seeds[i], kw=kwargs, apply=apply):
+            return apply(p, h, cfg,
+                         dropout_rng=M.generator_from_seed(seed, device),
+                         **kw)
 
         if remat_flags is not None and remat_flags[i]:
             layer = M.remat(layer, cfg)
-        x = layer(lp, x)
+        if "moe" in lp:
+            # a recompute under remat routes as the first pass did: the
+            # same inputs give the same products
+            x, aux, moe_stats[f"layer{i}"] = layer(lp, x)
+            aux_total = aux if aux_total is None else aux_total + aux
+        else:
+            x = layer(lp, x)
     x = M.apply_norm(params["prenorm"], x, cfg)
-    return M.apply_lm_head(params["head"], x, cfg,
-                           wte=params["embed"]["wte"],
-                           compute_dtype=compute_dtype)
+    logits = M.apply_lm_head(params["head"], x, cfg,
+                             wte=params["embed"]["wte"],
+                             compute_dtype=compute_dtype)
+    return (logits, aux_total, moe_stats) if with_aux else logits
 
 
 def causal_lm_loss(
@@ -155,19 +173,25 @@ def causal_lm_loss(
     remat_flags: Optional[Sequence[bool]] = None,
     layer_overrides: Optional[Dict[int, Dict[str, Any]]] = None,
     fused_ce: Optional[bool] = None,
-) -> torch.Tensor:
+    with_moe_stats: bool = False,
+):
     """batch: tokens [B,S], labels [B,S], optional loss_mask, position_ids
-    and segment_ids [B,S] and dropout_rng -> scalar loss. ``fused_ce``
-    overrides ``cfg.use_fused_ce`` (K4/K5 through ``fused_ce_nll``)."""
+    and segment_ids [B,S] and dropout_rng -> scalar loss, CE plus the MoE
+    layers' aux loss (with ``with_moe_stats``: (loss, router stats by
+    ``layer{i}``)). ``fused_ce`` overrides ``cfg.use_fused_ce`` (K4/K5
+    through ``fused_ce_nll``)."""
     fused = cfg.use_fused_ce if fused_ce is None else fused_ce
-    logits = forward_causal_lm(
+    logits, aux, moe_stats = forward_causal_lm(
         params, batch["tokens"], cfg, compute_dtype=compute_dtype,
         remat_flags=remat_flags, layer_overrides=layer_overrides,
         dropout_rng=batch.get("dropout_rng"),
         position_ids=batch.get("position_ids"),
-        segment_ids=batch.get("segment_ids"))
-    return M.cross_entropy_loss(logits, batch["labels"],
+        segment_ids=batch.get("segment_ids"), with_aux=True)
+    loss = M.cross_entropy_loss(logits, batch["labels"],
                                 batch.get("loss_mask"), fused=fused)
+    if aux is not None:
+        loss = loss + aux
+    return (loss, moe_stats) if with_moe_stats else loss
 
 
 def param_count(params: Params) -> int:
@@ -177,7 +201,8 @@ def param_count(params: Params) -> int:
 def model_flops_per_token(cfg: ModelArgs,
                           seq_len: Optional[int] = None) -> float:
     """Approximate training FLOPs per token (6N + attention), the MFU
-    numerator of the JAX package's bench and profilers."""
+    numerator of the JAX package's bench and profilers. As there, an MoE
+    layer counts one dense MLP of ``ffn_dim``, not its top-k experts."""
     s = seq_len or cfg.seq_length
     h, f, v = cfg.hidden_size, cfg.ffn_dim, cfg.padded_vocab_size
     nq, nkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim

@@ -12,8 +12,9 @@ plain dense core and ``ops.flash_attention.flash_sdpa`` the CUDA kernels.
 ``ops.cross_entropy.fused_ce_nll`` (the CUDA kernels K4/K5); :func:`remat`
 is per-layer activation checkpointing with the JAX package's policies.
 
-Outside this slice, and raising rather than ignored: post-norm (bert) and
-encoder-decoder (t5) blocks, MoE layers, rope scaling and multimodal rope.
+MoE layers live in ``models/moe.py``. Outside this slice, and raising rather
+than ignored: post-norm (bert) and encoder-decoder (t5) blocks, rope scaling
+and multimodal rope.
 """
 
 from __future__ import annotations
@@ -43,12 +44,10 @@ def compute_dtype_of(mixed_precision: str) -> torch.dtype:
 
 def check_model_supported(cfg: ModelArgs) -> None:
     """Raise for model settings this slice of the port does not run."""
-    if cfg.model_type not in ("gpt", "llama"):
+    if cfg.model_type not in ("gpt", "llama", "moe"):
         raise NotImplementedError(
-            f"model_type={cfg.model_type!r} (bert/t5/moe) is not ported yet; "
-            "this slice runs decoder-only gpt/llama stacks")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+            f"model_type={cfg.model_type!r} (bert/t5) is not ported yet; "
+            "this slice runs decoder-only gpt/llama/moe stacks")
     if cfg.post_norm:
         raise NotImplementedError("post-norm blocks are not ported yet")
     if cfg.rope_scaling or cfg.mrope_section:
@@ -58,6 +57,12 @@ def check_model_supported(cfg: ModelArgs) -> None:
         raise NotImplementedError(
             "gemma numerics (norm_zero_centered / scale_embeddings) are not "
             "ported yet")
+
+
+def normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
+    """fp32 normal(0, std) weights drawn from ``gen``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return t.normal_(0.0, std, generator=gen)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +233,22 @@ _ACTS = {
 
 def is_gated(act: str) -> bool:
     return act in ("swiglu", "geglu")
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelArgs, device,
+             ffn_dim: Optional[int] = None) -> Params:
+    """``win [H, F]`` (``[H, 2F]`` gated: gate | up) at std 0.02 and ``wout
+    [F, H]`` at the residual std 0.02 / sqrt(2L), drawn in that order; zero
+    biases with ``add_bias_linear``."""
+    h, f = cfg.hidden_size, ffn_dim or cfg.ffn_dim
+    fin = 2 * f if is_gated(cfg.hidden_act) else f
+    p = {"win": normal(gen, (h, fin), 0.02, device),
+         "wout": normal(gen, (f, h),
+                        0.02 / math.sqrt(2 * cfg.num_hidden_layers), device)}
+    if cfg.add_bias_linear:
+        p["bin"] = torch.zeros(fin, device=device)
+        p["bout"] = torch.zeros(h, device=device)
+    return p
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelArgs,

@@ -2,8 +2,10 @@
 
 Both packages keep the same tree and layouts (``embed.wte [Vp, H]`` with the
 padded vocab rows, ``embed.wpe``, ``layers[i].{ln1, attn.{wqkv, bqkv, wo,
-bo}, ln2, mlp.{win, bin, wout, bout}}``, ``prenorm``, ``head`` empty when
-the head is tied), so the bridge converts leaves and nothing else: q | k | v
+bo}, ln2, mlp.{win, bin, wout, bout}}``, an MoE layer's ``moe.{router, win,
+wout, shared.{win, bin, wout, bout}, expert_bias}`` in place of ``mlp``,
+``prenorm``, ``head`` empty when the head is tied), so the bridge converts
+leaves and nothing else: q | k | v
 stay in their split order along ``wqkv``'s wide axis and the tied head keeps
 reading ``wte``. The JAX side is given as numpy arrays (``layers`` a tuple);
 the port's side is fp32 tensors (``layers`` a list).
@@ -23,9 +25,9 @@ Params = Dict[str, Any]
 _NORM = {"scale", "bias"}
 _KEYS = {
     "embed": {"wte", "wpe"},
-    "layer": {"ln1", "attn", "ln2", "mlp"},
     "attn": {"wqkv", "bqkv", "wo", "bo"},
     "mlp": {"win", "bin", "wout", "bout"},
+    "moe": {"router", "win", "wout", "shared", "expert_bias"},
     "head": {"whead"},
 }
 
@@ -34,7 +36,7 @@ def _check_keys(tree: Dict, allowed, where: str) -> None:
     extra = set(tree) - set(allowed)
     if extra:
         raise ValueError(f"{where}: keys {sorted(extra)} are outside this "
-                         "slice of the port (MoE / bert / t5 trees are not "
+                         "slice of the port (bert / t5 trees are not "
                          "ported yet)")
 
 
@@ -58,14 +60,25 @@ def _convert(tree: Params, leaf, layers_type) -> Params:
     def norm(t, where):
         return _map(t, leaf, where, _NORM)
 
+    def moe(t, where):
+        out = _map({k: v for k, v in t.items() if k != "shared"}, leaf,
+                   where, _KEYS["moe"])
+        if "shared" in t:
+            out["shared"] = _map(t["shared"], leaf, f"{where}.shared",
+                                 _KEYS["mlp"])
+        return out
+
     layers = []
     for i, lp in enumerate(tree["layers"]):
-        _check_keys(lp, _KEYS["layer"], f"layers[{i}]")
+        ffn = "moe" if "moe" in lp else "mlp"
+        _check_keys(lp, {"ln1", "attn", "ln2", ffn}, f"layers[{i}]")
+        where = f"layers[{i}].{ffn}"
         layers.append({
             "ln1": norm(lp["ln1"], f"layers[{i}].ln1"),
             "attn": _map(lp["attn"], leaf, f"layers[{i}].attn", _KEYS["attn"]),
             "ln2": norm(lp["ln2"], f"layers[{i}].ln2"),
-            "mlp": _map(lp["mlp"], leaf, f"layers[{i}].mlp", _KEYS["mlp"]),
+            ffn: (moe(lp[ffn], where) if ffn == "moe" else
+                  _map(lp[ffn], leaf, where, _KEYS["mlp"])),
         })
     return {
         "embed": _map(tree["embed"], leaf, "embed", _KEYS["embed"]),

@@ -7,13 +7,17 @@ microbatch's share of valid tokens, so a chunked step equals the unchunked
 one even under a non-uniform loss mask. The step runs eagerly: PyTorch has
 no counterpart of the jitted scan, and none is needed here.
 
-Not ported yet, and raising: the hierarchical dp reduction (``hier``) and
-MoE aux statistics (``aux_stats``).
+With ``aux_stats`` the loss function returns ``(loss, stats)`` (the MoE
+layers' router statistics by ``layer{i}``) and the stats come back in
+``metrics["moe"]``: over microbatches, loss-like stats are weighted by each
+microbatch's token share and ``tokens_per_expert`` is summed.
+
+Not ported yet, and raising: the hierarchical dp reduction (``hier``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -24,12 +28,15 @@ from hetu_galvatron_tpu_torch.runtime.optimizer import AdamW, global_grad_norm
 
 
 def make_loss_fn(cfg: ModelArgs, *, compute_dtype=torch.bfloat16,
-                 remat_flags=None, layer_overrides=None
-                 ) -> Callable[[Any, Dict[str, Any]], torch.Tensor]:
+                 remat_flags=None, layer_overrides=None,
+                 with_moe_stats: bool = False) -> Callable:
+    """``loss_fn(params, batch)``: the loss, or ``(loss, MoE stats)`` with
+    ``with_moe_stats`` (the loss function of an ``aux_stats`` step)."""
     def loss_fn(params, batch):
         return causal_lm_loss(params, batch, cfg, compute_dtype=compute_dtype,
                               remat_flags=remat_flags,
-                              layer_overrides=layer_overrides)
+                              layer_overrides=layer_overrides,
+                              with_moe_stats=with_moe_stats)
     return loss_fn
 
 
@@ -53,25 +60,53 @@ def _split_batch(batch: Dict[str, Any], chunks: int):
              for k, v in batch.items()} for c in range(chunks)]
 
 
+def _reduce_stats(stacked: List[Dict[str, Dict[str, torch.Tensor]]],
+                 weights: torch.Tensor) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-microbatch MoE stats -> the step's: ``tokens_per_expert`` summed,
+    every other stat weighted by the microbatch token shares."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for layer in stacked[0]:
+        out[layer] = {}
+        for key in stacked[0][layer]:
+            s = torch.stack([st[layer][key] for st in stacked])
+            if key == "tokens_per_expert":
+                out[layer][key] = s.sum(0)
+            else:
+                w = weights.to(s.device).reshape((-1,) + (1,) * (s.dim() - 1))
+                out[layer][key] = (w * s).sum(0)
+    return out
+
+
+def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]):
+    """d loss / d leaf; zeros for a leaf the loss does not reach (an expert
+    bias under sinkhorn routing), as JAX's grad gives."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
+
+
 def make_train_step(loss_fn: Callable, tx: AdamW, *, chunks: int = 1,
                     aux_stats: bool = False, hier: Optional[Any] = None
                     ) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; parameters and the optimizer state are updated in place and
     returned. ``batch`` holds tensors on the run's device and may carry a
-    per-step ``dropout_rng`` (a ``torch.Generator``)."""
+    per-step ``dropout_rng`` (a ``torch.Generator``). ``opt_state`` comes
+    from ``tx.init`` over ``named_leaves(params)`` (with the names, so that
+    expert-bias leaves take SGD)."""
     if hier is not None:
         raise NotImplementedError(
             "the hierarchical dp gradient reduction (hier_dp) is not ported "
             "yet")
-    if aux_stats:
-        raise NotImplementedError("MoE aux statistics are not ported yet")
 
     def step(params, opt_state, batch):
         leaves = [t for _, t in named_leaves(params)]
+        stats: Dict[str, Any] = {}
         if chunks <= 1:
             loss = loss_fn(params, batch)
-            grads = list(torch.autograd.grad(loss, leaves))
+            if aux_stats:
+                loss, stats = loss
+            grads = _grads(loss, leaves)
             loss = loss.detach()
         else:
             # the per-step generator is not a [B, ...] array: each
@@ -87,15 +122,24 @@ def make_train_step(loss_fn: Callable, tx: AdamW, *, chunks: int = 1,
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
+            stacked = []
             for mb, w, child in zip(mbs, weights, split_rng(rng, chunks)):
                 if child is not None:
                     mb["dropout_rng"] = child
                 l = loss_fn(params, mb)
-                g = torch.autograd.grad(l, leaves)
+                if aux_stats:
+                    l, st = l
+                    stacked.append(st)
+                g = _grads(l, leaves)
                 torch._foreach_add_(grads, [x.float() * w for x in g])
                 loss = loss + w * l.detach()
+            if aux_stats:
+                stats = _reduce_stats(stacked, weights)
         gnorm = global_grad_norm(grads)
         opt_state = tx.update(leaves, grads, opt_state, gnorm)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": loss, "grad_norm": gnorm}
+        if aux_stats:
+            metrics["moe"] = stats
+        return params, opt_state, metrics
 
     return step

@@ -75,7 +75,7 @@ def test_torch_train_dist_with_dropout_runs_on_cpu():
     "rerun.enable=true", "chaos.enable=true", "observability.enabled=true",
     "tp_overlap.enable=true", "parallel.hier_dp=true",
     "train.rampup_batch_size=[2,2,8]", "supervisor.auto_restart=true",
-    "parallel.global_tp_deg=2",
+    "parallel.global_tp_deg=2", "parallel.global_ep_deg=2",
     "parallel.num_devices=2", "parallel.num_processes=2",
     "parallel.config_mode=json", "parallel.sdp=1",
 ])
@@ -210,3 +210,85 @@ def test_torch_train_dist_qwen_path_matches_the_jax_trainer(tmp_path,
         np.testing.assert_allclose(t.detach().numpy(),
                                    want[name].detach().numpy(),
                                    rtol=1e-5, atol=1e-7, err_msg=name)
+
+
+MIXTRAL_YAML = os.path.join(os.path.dirname(__file__), "..",
+                            "hetu_galvatron_tpu", "models", "configs",
+                            "mixtral-8x7b.yaml")
+MISTRAL_EOD = 2  # </s>
+
+
+def test_torch_train_dist_mixtral_path_matches_the_jax_trainer(tmp_path,
+                                                              monkeypatch):
+    """Three steps of ``train_dist.train(device=cpu)`` on
+    ``mixtral-8x7b.yaml`` at a tiny width (8 experts, top-2, capacity
+    dispatch, GQA 4:2) over a packed corpus, with fused CE and remat on both
+    layers, against three steps of the JAX trainer on the same weights and
+    batches. Losses (CE + the MoE aux losses) and every parameter agree
+    within 1e-5 relative, atol 1e-7 for entries near zero (as in the Qwen
+    path's test); each step logs its per-layer MoE balance."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    from hetu_galvatron_tpu.core import arguments as JA
+    from hetu_galvatron_tpu.data.indexed_dataset import write_indexed_dataset
+    from hetu_galvatron_tpu.models import builder as JB
+    from hetu_galvatron_tpu.runtime import dataloader as JD
+    from hetu_galvatron_tpu.runtime import optimizer as JO
+    from hetu_galvatron_tpu.runtime import trainer as JT
+    from hetu_galvatron_tpu_torch.models import builder as TB
+    from hetu_galvatron_tpu_torch.runtime.checkpoint import params_from_jax
+
+    rng = np.random.default_rng(1)
+    prefix = str(tmp_path / "corpus")
+    write_indexed_dataset(prefix, [
+        np.append(rng.integers(3, 512, rng.integers(4, 40)), MISTRAL_EOD)
+        for _ in range(300)])
+    with open(prefix + ".meta.json", "w") as f:
+        json.dump({"vocab_size": 512, "eod_id": MISTRAL_EOD}, f)
+    over = ["model.hidden_size=64", "model.num_hidden_layers=2",
+            "model.num_attention_heads=4", "model.num_key_value_heads=2",
+            "model.ffn_hidden_size=96", "model.vocab_size=512",
+            "model.seq_length=32", "model.max_position_embeddings=64",
+            "model.use_fused_ce=true", "parallel.global_checkpoint=1",
+            "parallel.mixed_precision=fp32",
+            "parallel.global_train_batch_size=2", "train.train_iters=3",
+            "train.lr=1e-4", "train.adam_eps=1e-5", "data.dataset=indexed",
+            f"data.data_path=[{prefix}]", "data.split=98,1,1",
+            "data.reset_position_ids=true", "data.reset_attention_mask=true",
+            "data.eod_mask_loss=true"]
+    jargs = JA.load_config(MIXTRAL_YAML, over)
+    assert (jargs.model.num_experts, jargs.model.moe_topk,
+            jargs.model.moe_dispatcher) == (8, 2, "capacity")
+    jparams, _ = JB.init_causal_lm(jax.random.key(9), jargs.model)
+    npy = jax.tree.map(np.asarray, jparams)
+    monkeypatch.setattr(TB, "init_causal_lm",
+                        lambda cfg, seed, device: params_from_jax(npy))
+    logged = []
+    out = train_dist.train(load_config(MIXTRAL_YAML, ["device=cpu", *over]),
+                           on_step=lambda it, m: logged.append(m["moe"]))
+
+    jtx = JO.make_optimizer(jargs.train)
+    jstep = jax.jit(JT.make_train_step(
+        JT.make_loss_fn(jargs.model, compute_dtype=jnp.float32,
+                        remat_flags=[True, True]), jtx))
+    jopt = jtx.init(jparams)
+    jit = JD.get_data_iterator(jargs, split="train")
+    jlosses = []
+    for _ in range(3):
+        batch = jax.tree.map(jnp.asarray, next(jit))
+        jparams, jopt, jm = jstep(jparams, jopt, batch)
+        jlosses.append(float(jm["loss"]))
+    np.testing.assert_allclose(out["losses"], jlosses, rtol=1e-5)
+    want = dict(TB.named_leaves(params_from_jax(
+        jax.tree.map(np.asarray, jparams))))
+    for name, t in TB.named_leaves(out["params"]):
+        np.testing.assert_allclose(t.detach().numpy(),
+                                   want[name].detach().numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)
+    assert [sorted(m) for m in logged] == [["layer0", "layer1"]] * 3
+    for m in logged:
+        for st in m.values():
+            assert float(st["tokens_per_expert"].sum()) == 2 * 32 * 2

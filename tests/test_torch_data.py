@@ -239,3 +239,31 @@ def test_torch_random_corpus_is_seeded_and_reads_the_same_in_jax(tmp_path):
             *TS.packed_corpus_overrides(str(tmp_path / "a"))]
     _same_batches(JD.get_data_iterator(JA.load_config(None, over)),
                   TD.get_data_iterator(TA.load_config(None, over)), 4)
+
+
+def test_torch_random_corpus_takes_the_ids_of_the_configs_tokenizer(
+        tmp_path):
+    """Mistral's eod id is 2, at the bottom of its vocabulary: its corpus
+    draws ordinary ids from [3, 32000); Qwen's keeps [0, eod) (the same
+    files as before the range became a parameter)."""
+    assert TS.corpus_tokenizer("mixtral-8x7b") == TS.TOKENIZERS["mistral"]
+    qwen = TS.corpus_tokenizer("qwen2.5-7b")
+    assert qwen["ids"] == (0, qwen["eod"])
+    with pytest.raises(ValueError, match="no tokenizer"):
+        TS.corpus_tokenizer("gpt2-small")
+    kw = dict(docs=30, mean_len=40, seed=2)
+    TS.write_random_corpus(str(tmp_path / "m"), **kw,
+                           **TS.corpus_tokenizer("mixtral-8x7b"))
+    ds = JI.IndexedDataset(str(tmp_path / "m"))
+    for i in range(len(ds)):
+        doc = ds.get_doc(i)
+        assert doc[-1] == 2 and doc[:-1].min() >= 3 and doc.max() < 32000
+    small = dict(vocab=VOCAB, eod=EOD, tokenizer_vocab=VOCAB, seed=3,
+                 docs=10, mean_len=30)
+    TS.write_random_corpus(str(tmp_path / "d"), **small)
+    TS.write_random_corpus(str(tmp_path / "e"), **small, ids=(0, EOD))
+    with open(tmp_path / "d.bin", "rb") as f1, \
+            open(tmp_path / "e.bin", "rb") as f2:
+        assert f1.read() == f2.read()
+    with pytest.raises(ValueError, match="eod"):
+        TS.write_random_corpus(str(tmp_path / "x"), **small, ids=(0, VOCAB))

@@ -235,10 +235,14 @@ def test_torch_weight_bridge_round_trips_exactly(family):
 
 def test_torch_weight_bridge_rejects_trees_outside_the_slice():
     _, _, npy, _ = _setup("gpt")
-    npy = dict(npy)
-    npy["layers"] = ({**npy["layers"][0], "moe": {}},) + npy["layers"][1:]
-    with pytest.raises(ValueError, match="outside this slice"):
-        params_from_jax(npy)
+    # a t5 decoder block's cross-attention, and a bert MLM head
+    t5 = dict(npy)
+    t5["layers"] = ({**npy["layers"][0], "lnx": {}, "cross": {}},) \
+        + npy["layers"][1:]
+    bert = dict(npy, head={"wt": np.zeros((64, 64), np.float32)})
+    for tree in (t5, bert):
+        with pytest.raises(ValueError, match="outside this slice"):
+            params_from_jax(tree)
 
 
 def test_torch_model_refuses_settings_outside_the_slice():
@@ -249,7 +253,7 @@ def test_torch_model_refuses_settings_outside_the_slice():
     # test_torch_causal_lm_packed_remat_fused_ce_matches_jax)
     TB.forward_causal_lm(params, tokens, cfg, remat_flags=[True, False],
                          segment_ids=torch.zeros_like(tokens))
-    for bad in (dict(num_experts=4), dict(model_type="bert"),
+    for bad in (dict(norm_position="post"), dict(model_type="bert"),
                 dict(model_type="t5"),
                 dict(rope_scaling={"rope_type": "linear", "factor": 2.0})):
         with pytest.raises(NotImplementedError):

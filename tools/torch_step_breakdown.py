@@ -16,7 +16,9 @@ which the profiler's host work does not stretch. Extra ``key=value``
 arguments override the config as in ``train_dist``
 (``model.use_flash_attn=false`` times the plain attention core instead).
 ``--packed-corpus DIR`` writes the seeded packed corpus of ``chip_smoke.py``
-phase 6 (600 documents, Qwen's eod id and vocabulary) into DIR with
+phases 6 and 7 (600 documents of about 1500 tokens, in the vocabulary and
+with the eod id of the config's tokenizer, ``data.synthetic.
+corpus_tokenizer``: Qwen's 151643, Mistral's 2) into DIR with
 ``data.synthetic.write_random_corpus`` and trains on it with packed
 documents and end-of-document loss masking. Prints a table and, as its last
 line, the result as JSON. Needs one CUDA card.
@@ -29,6 +31,9 @@ seq 4096, fused cross-entropy, remat on every layer):
         --packed-corpus qwen_corpus model.num_hidden_layers=4 \
         model.use_fused_ce=true parallel.global_checkpoint=1 \
         parallel.global_train_batch_size=2
+
+The Mixtral-8x7B-width path of phase 7 takes ``mixtral-8x7b.yaml`` and
+``model.num_hidden_layers=2`` in their place.
 """
 
 from __future__ import annotations
@@ -43,10 +48,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GPT2_YAML = os.path.join(ROOT, "hetu_galvatron_tpu", "models", "configs",
                          "gpt2-small.yaml")
 WARMUP, STEPS = 3, 4
-# the corpus of --packed-corpus: Qwen2.5's padded vocabulary, <|endoftext|>
-# and tokenizer length, as chip_smoke.py phase 6 writes it
-QWEN_CORPUS = dict(docs=600, mean_len=1500, vocab=152064, eod=151643,
-                   tokenizer_vocab=151665)
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("flash K1 (fwd)", ("flash_fwd_kernel",)),
@@ -93,6 +94,7 @@ def main(argv) -> int:
     from hetu_galvatron_tpu_torch.cli.train_dist import train
     from hetu_galvatron_tpu_torch.core.arguments import load_config
     from hetu_galvatron_tpu_torch.data.synthetic import (
+        corpus_tokenizer,
         packed_corpus_overrides,
         write_random_corpus,
     )
@@ -108,7 +110,9 @@ def main(argv) -> int:
         del argv[i:i + 2]
         os.makedirs(corpus_dir, exist_ok=True)
         prefix = os.path.join(os.path.abspath(corpus_dir), "corpus")
-        write_random_corpus(prefix, **QWEN_CORPUS)
+        name = load_config(config, argv).model.model_name
+        write_random_corpus(prefix, docs=600, mean_len=1500,
+                            **corpus_tokenizer(name))
         argv = packed_corpus_overrides(prefix) + argv
     args = load_config(config, ["parallel.global_train_batch_size=8",
                                 "parallel.mixed_precision=bf16",
