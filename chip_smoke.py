@@ -55,7 +55,27 @@ each of which ends the run with a non-zero exit when it fails:
    two evals. It checks every step's tokens per expert, prints the share of
    slots each layer drops at capacity, and prints the MFU twice: by the
    JAX formula (one expert's MLP a token) and by the FLOPs the step
-   executes (top-2 experts at capacity, dispatch and combine, remat).
+   executes (top-2 experts at capacity, dispatch and combine, remat);
+8. main path of slice 6, the checkpoint and fault lifecycle, each drill
+   through ``python -m hetu_galvatron_tpu_torch.cli.supervise`` (children
+   ``cli.train_dist``, each writing its summary line, ``extra.summary_
+   path``): phase 6's config cut to 2 layers (1,556,113,920 parameters,
+   18.67 GB of params, mu and nu a checkpoint) runs 6 steps uninterrupted,
+   then again with a real SIGTERM at step 2 (``rerun.inject_kind=
+   preempt``): the child checkpoints step_3 at the boundary and exits 18,
+   the relaunch resumes at step 3 and exits 0; the stitched losses, the
+   evaluation losses and a SHA-256 of every final parameter must equal the
+   uninterrupted run's, each child's launches must be its steps' and
+   evals', and the save and load times, bytes, peak memory and
+   ``supervisor.term_grace_s`` against the save time are printed. Then
+   GPT-2 small at full size saves every 2 steps and is SIGKILLed in the
+   commit window of step_4 (``chaos.kind=kill_mid_save``): the relaunch
+   must resume from step_2, never the torn ``step_4.tmp``, and end
+   bit-identical to an uninterrupted run. The checkpoints live in a
+   temporary directory that must hold 2.5 checkpoints of free space and is
+   removed at exit, with the children's logs (a failing drill prints the
+   end of its log).
+   ``python3 chip_smoke.py --lifecycle-only`` runs phases 1, 2 and 8 alone.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
@@ -66,7 +86,8 @@ The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
 and bound times measured at that path's shape. The row's own ``launches``
-and times are those of slice 5's path. K1-K3's blocks also carry the
+and times are those of slice 6's path, the Qwen2.5-7B-width preemption
+drill (both children; its shapes are phase 6's). K1-K3's blocks also carry the
 measured part of the report above.
 """
 
@@ -76,6 +97,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -705,22 +727,10 @@ def reference_run_ce(tmp: str):
     return runs
 
 
-def qwen_path(peak_flops: float, tmp: str):
-    """Slice 2's main path: Qwen2.5-7B widths cut to 4 layers, bsz 2 at seq
-    4096, bf16, fused cross-entropy, remat on every layer, over a packed
-    indexed corpus with eod masking; 8 steps, then one batch each of the
-    valid and test splits under no_grad. Launch counts reset just before
-    and read just after."""
-    import torch
-
-    from hetu_galvatron_tpu_torch.cli.train_dist import train
-    from hetu_galvatron_tpu_torch.core.arguments import load_config
-    from hetu_galvatron_tpu_torch.data.synthetic import (
-        packed_corpus_overrides,
-        write_random_corpus,
-    )
-    from hetu_galvatron_tpu_torch.models.builder import model_flops_per_token
-    from hetu_galvatron_tpu_torch.ops import _build
+def write_qwen_corpus(tmp: str):
+    """Phase 6's seeded packed corpus in Qwen's vocabulary (eod 151643);
+    returns its prefix, its stats and the samples of each split."""
+    from hetu_galvatron_tpu_torch.data.synthetic import write_random_corpus
 
     prefix = os.path.join(tmp, "qwen_corpus")
     corpus = write_random_corpus(prefix, docs=600, mean_len=1500, vocab=QV,
@@ -733,6 +743,24 @@ def qwen_path(peak_flops: float, tmp: str):
     if min(samples[1:]) < 1:
         raise SmokeFailure(f"an eval split holds no {QS + 1}-token sample: "
                            f"{samples}")
+    return prefix, corpus, samples
+
+
+def qwen_path(peak_flops: float, tmp: str):
+    """Slice 2's main path: Qwen2.5-7B widths cut to 4 layers, bsz 2 at seq
+    4096, bf16, fused cross-entropy, remat on every layer, over a packed
+    indexed corpus with eod masking; 8 steps, then one batch each of the
+    valid and test splits under no_grad. Launch counts reset just before
+    and read just after."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+    from hetu_galvatron_tpu_torch.models.builder import model_flops_per_token
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    prefix, corpus, samples = write_qwen_corpus(tmp)
     args = load_config(QWEN_YAML, [
         f"model.num_hidden_layers={QWEN_LAYERS}", "model.use_fused_ce=true",
         "parallel.global_checkpoint=1", "parallel.mixed_precision=bf16",
@@ -1112,6 +1140,288 @@ def main_path(peak_flops: float):
     return summary
 
 
+
+# -- phase 8: checkpoint, resume and the fault lifecycle ---------------------
+
+DRILL_STEPS = 6
+QWEN_DRILL_LAYERS = 2
+DRILL_PREEMPT_AT = 2  # the Qwen drill's SIGTERM: step_3 at the boundary
+GPT2_KILL_AT = 3  # the GPT-2 drill's SIGKILL in the save of step_4
+DISK_FACTOR = 2.5  # a committed checkpoint, a torn .tmp and headroom
+TERM_GRACE_S = 300.0  # supervisor.term_grace_s: above one save, printed
+DRILL_TIMEOUT_S = 420.0
+
+
+def dense_param_count(cfg) -> int:
+    """Parameters of a dense decoder config, from its shapes alone."""
+    from hetu_galvatron_tpu_torch.models.modules import is_gated
+
+    h, hd, f = cfg.hidden_size, cfg.head_dim, cfg.ffn_dim
+    qkv = (cfg.num_attention_heads + 2 * cfg.kv_heads) * hd
+    norm = h * (2 if cfg.normalization == "layernorm" else 1)
+    fin = 2 * f if is_gated(cfg.hidden_act) else f
+    layer = (2 * norm + h * qkv + cfg.num_attention_heads * hd * h
+             + h * fin + f * h + qkv * cfg.add_qkv_bias
+             + (2 * h + fin) * cfg.add_bias_linear)
+    embed = cfg.padded_vocab_size * h
+    if cfg.position_embedding_type == "learned":
+        embed += cfg.max_position_embeddings * h
+    head = 0 if cfg.tie_word_embeddings else h * cfg.padded_vocab_size
+    return embed + cfg.num_hidden_layers * layer + norm + head
+
+
+def run_child(module: str, argv, out_dir: str, tag: str):
+    """``python -m module argv`` from the repository root; its output goes
+    to ``out_dir/<tag>.log`` and its tail is printed when it fails."""
+    cmd = [sys.executable, "-m", module, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=DRILL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    with open(os.path.join(out_dir, f"{tag}.log"), "w") as f:
+        f.write(text)
+    log(f"  {tag}: {module.rsplit('.', 1)[-1]} exit {proc.returncode} in "
+        f"{wall:.1f} s")
+    return proc.returncode, text, wall
+
+
+def summaries(path: str):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def child_exits(text: str):
+    """The child exit codes a supervisor reported, in order, and its own
+    final one (a clean last child is logged as ``done``, not as an exit)."""
+    return [int(c) for c in re.findall(r"supervisor: child exit (-?\d+);",
+                                       text)]
+
+
+def want_launches(per_step, per_eval, steps: int, evals: int):
+    return {k: per_step[k] * steps + per_eval[k] * evals for k in per_step}
+
+
+def check_drill_child(tag, rec, want):
+    if rec["launches"] != want:
+        raise SmokeFailure(f"{tag}: launches {rec['launches']}, want {want}")
+
+
+def qwen_drill(smi: str, prefix: str, ckroot: str, out_dir: str):
+    """The Qwen2.5-7B-width preemption drill: a reference run of
+    DRILL_STEPS steps, then the same run under ``cli.supervise`` with a real
+    SIGTERM at step DRILL_PREEMPT_AT; the stitched losses and the final
+    parameters must equal the reference's bit for bit."""
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+
+    over = [QWEN_YAML, f"model.num_hidden_layers={QWEN_DRILL_LAYERS}",
+            "model.use_fused_ce=true", "parallel.global_checkpoint=1",
+            "parallel.mixed_precision=bf16",
+            f"parallel.global_train_batch_size={QB}",
+            f"train.train_iters={DRILL_STEPS}",
+            f"train.eval_interval={DRILL_STEPS}", "train.eval_iters=1",
+            *packed_corpus_overrides(prefix)]
+    cfg = load_config(over[0], over[1:]).model
+    n_params = dense_param_count(cfg)
+    ckpt_bytes = 12 * n_params  # fp32 params, mu and nu
+    free = shutil.disk_usage(ckroot).free
+    log(f"  [{smi}] {cfg.model_name} at {QWEN_DRILL_LAYERS} layers: "
+        f"{n_params:,} parameters, {ckpt_bytes / 1e9:.2f} GB a checkpoint; "
+        f"{free / 1e9:.1f} GB free under {ckroot}")
+    if free < DISK_FACTOR * ckpt_bytes:
+        raise SmokeFailure(
+            f"qwen drill: {free / 1e9:.1f} GB free under {ckroot}, below "
+            f"{DISK_FACTOR} x {ckpt_bytes / 1e9:.2f} GB (a committed "
+            "checkpoint, a torn staging dir and headroom)")
+    L, evals = cfg.num_hidden_layers, 2
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L,
+                "ce_fwd": 1, "ce_bwd": 1}
+    per_eval = {"flash_fwd": L, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+                "ce_fwd": 1, "ce_bwd": 0}
+    ref_path = os.path.join(ckroot, "qwen_reference.jsonl")
+    rc, text, _ = run_child(
+        "hetu_galvatron_tpu_torch.cli.train_dist",
+        over + [f"extra.summary_path={ref_path}"], out_dir, "qwen_reference")
+    ref = summaries(ref_path)
+    if rc != 0 or len(ref) != 1:
+        raise SmokeFailure(f"qwen reference run: exit {rc}, {len(ref)} "
+                           f"summaries:\n{text[-3000:]}")
+    ref = ref[0]
+    check_drill_child("qwen reference", ref,
+                      want_launches(per_step, per_eval, DRILL_STEPS, evals))
+    drill_path = os.path.join(ckroot, "qwen_drill.jsonl")
+    ck = os.path.join(ckroot, "qwen")
+    rc, text, wall = run_child(
+        "hetu_galvatron_tpu_torch.cli.supervise",
+        over + [f"ckpt.save={ck}", "rerun.inject_kind=preempt",
+                f"rerun.inject_at_iter={DRILL_PREEMPT_AT}",
+                "supervisor.auto_restart=true", "supervisor.mode=process",
+                f"supervisor.term_grace_s={TERM_GRACE_S}",
+                "supervisor.backoff_base_s=0",
+                "supervisor.poll_interval_s=0.2",
+                f"extra.summary_path={drill_path}"], out_dir, "qwen_drill")
+    kids = summaries(drill_path)
+    codes = [k["exit_code"] for k in kids]
+    if rc != 0 or codes != [18, 0] or child_exits(text) != [18]:
+        raise SmokeFailure(f"qwen drill: supervisor exit {rc}, child codes "
+                           f"{codes} (supervisor saw {child_exits(text)}), "
+                           f"want 0 and [18, 0]:\n{text[-3000:]}")
+    first, second = kids
+    cut = DRILL_PREEMPT_AT + 1
+    if (first["start_iter"], second["start_iter"]) != (0, cut):
+        raise SmokeFailure(f"qwen drill: children started at "
+                           f"{first['start_iter']} and "
+                           f"{second['start_iter']}, want 0 and {cut}")
+    stitched = first["losses"] + second["losses"]
+    log(f"  [{smi}] reference losses {ref['losses']}")
+    log(f"  [{smi}] stitched losses  {stitched}")
+    if stitched != ref["losses"]:
+        raise SmokeFailure(f"qwen drill: stitched losses {stitched} differ "
+                           f"from the uninterrupted run's {ref['losses']}")
+    if (second["val_losses"], second["test_loss"]) != (
+            ref["val_losses"], ref["test_loss"]):
+        raise SmokeFailure("qwen drill: evaluation losses differ from the "
+                           "uninterrupted run's")
+    bad = [n for n, h in ref["param_sha256"].items()
+           if second["param_sha256"].get(n) != h]
+    if bad or set(second["param_sha256"]) != set(ref["param_sha256"]):
+        raise SmokeFailure(f"qwen drill: final parameters differ from the "
+                           f"uninterrupted run's: {bad[:5]}")
+    check_drill_child("qwen drill, first child", first,
+                      want_launches(per_step, per_eval, cut, 0))
+    check_drill_child("qwen drill, second child", second,
+                      want_launches(per_step, per_eval, DRILL_STEPS - cut,
+                                    evals))
+    save = first["checkpoint"]["saves"][-1]
+    load = second["checkpoint"]["load"]
+    if save["step"] != cut or load["step"] != cut:
+        raise SmokeFailure(f"qwen drill: saved step {save['step']}, loaded "
+                           f"{load['step']}, want {cut}")
+    if TERM_GRACE_S <= save["ms"] / 1e3:
+        raise SmokeFailure(f"qwen drill: supervisor.term_grace_s "
+                           f"{TERM_GRACE_S} is not above the save's "
+                           f"{save['ms'] / 1e3:.1f} s")
+    gib = 2 ** 30
+    result = dict(
+        card=smi, model=cfg.model_name, layers=QWEN_DRILL_LAYERS,
+        params=n_params,
+        steps=DRILL_STEPS, preempt_at=DRILL_PREEMPT_AT, child_codes=codes,
+        supervisor_rc=rc, supervisor_wall_s=wall,
+        save_ms=save["ms"], save_bytes=save["bytes"],
+        save_gb_per_s=save["bytes"] / 1e6 / save["ms"],
+        load_ms=load["ms"], load_bytes=load["bytes"],
+        term_grace_s=TERM_GRACE_S,
+        peak_mem_gib=dict(reference=ref["peak_mem_bytes"] / gib,
+                          first_child=first["peak_mem_bytes"] / gib,
+                          second_child=second["peak_mem_bytes"] / gib),
+        losses=stitched,
+        launches=dict(reference=ref["launches"], first_child=first[
+            "launches"], second_child=second["launches"]),
+        launches_total={k: first["launches"][k] + second["launches"][k]
+                        for k in per_step},
+        launches_per_step=per_step, eval_launches={
+            k: per_eval[k] * evals for k in per_step})
+    log(f"  [{smi}] save of step {cut}: {save['bytes'] / 1e9:.3f} GB in "
+        f"{save['ms']:.0f} ms ({result['save_gb_per_s']:.2f} GB/s); load: "
+        f"{load['bytes'] / 1e9:.3f} GB in {load['ms']:.0f} ms; "
+        f"supervisor.term_grace_s {TERM_GRACE_S:.0f} s against a "
+        f"{save['ms'] / 1e3:.1f} s save; peak memory "
+        f"{result['peak_mem_gib']['first_child']:.1f} / "
+        f"{result['peak_mem_gib']['second_child']:.1f} GiB (children), "
+        f"{result['peak_mem_gib']['reference']:.1f} GiB (reference)")
+    log("qwen drill: " + json.dumps(result))
+    return result
+
+
+def gpt2_drill(smi: str, ckroot: str, out_dir: str):
+    """GPT-2 small at full size: a run that commits step_2 is SIGKILLed in
+    the commit window of step_4 (chaos kill_mid_save); the supervisor's
+    relaunch must resume from step_2, never the torn step_4.tmp, and end
+    bit-identical to an uninterrupted run."""
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+
+    over = [GPT2_YAML, "parallel.global_train_batch_size=8",
+            "parallel.mixed_precision=bf16",
+            f"train.train_iters={DRILL_STEPS}"]
+    n_layers = load_config(over[0], over[1:]).model.num_hidden_layers
+    ref_path = os.path.join(ckroot, "gpt2_reference.jsonl")
+    rc, text, _ = run_child(
+        "hetu_galvatron_tpu_torch.cli.train_dist",
+        over + [f"extra.summary_path={ref_path}"], out_dir, "gpt2_reference")
+    ref = summaries(ref_path)
+    if rc != 0 or len(ref) != 1:
+        raise SmokeFailure(f"gpt2 reference run: exit {rc}:\n{text[-3000:]}")
+    ref = ref[0]
+    per_step = {k: n_layers if k in FLASH else 0 for k in KERNELS}
+    check_drill_child("gpt2 reference", ref,
+                      want_launches(per_step, per_step, DRILL_STEPS, 0))
+    drill_path = os.path.join(ckroot, "gpt2_drill.jsonl")
+    ck = os.path.join(ckroot, "gpt2")
+    rc, text, wall = run_child(
+        "hetu_galvatron_tpu_torch.cli.supervise",
+        over + [f"ckpt.save={ck}", "ckpt.save_interval=2",
+                "chaos.enable=true", "chaos.kind=kill_mid_save",
+                f"chaos.at_iter={GPT2_KILL_AT}",
+                "supervisor.auto_restart=true", "supervisor.mode=process",
+                "supervisor.backoff_base_s=0",
+                "supervisor.poll_interval_s=0.2",
+                f"extra.summary_path={drill_path}"], out_dir, "gpt2_drill")
+    kids = summaries(drill_path)
+    if rc != 0 or child_exits(text) != [-9] or len(kids) != 1:
+        raise SmokeFailure(f"gpt2 drill: supervisor exit {rc}, children "
+                           f"{child_exits(text)} and {len(kids)} summaries, "
+                           f"want 0, [-9] and 1:\n{text[-3000:]}")
+    kid = kids[0]
+    load = kid["checkpoint"]["load"]
+    if load is None or load["step"] != 2 or not load["dir"].endswith(
+            os.sep + "step_2"):
+        raise SmokeFailure(f"gpt2 drill: resumed from {load}, want the last "
+                           "committed step_2")
+    torn = [e for e in os.listdir(ck) if e.endswith(".tmp")]
+    if kid["exit_code"] != 0 or kid["start_iter"] != 2 or torn:
+        raise SmokeFailure(f"gpt2 drill: exit {kid['exit_code']}, start "
+                           f"{kid['start_iter']}, staging dirs left {torn}")
+    log(f"  [{smi}] reference losses {ref['losses']}")
+    log(f"  [{smi}] resumed losses   {kid['losses']}")
+    if kid["losses"] != ref["losses"][2:]:
+        raise SmokeFailure(f"gpt2 drill: resumed losses {kid['losses']} "
+                           f"differ from {ref['losses'][2:]}")
+    if kid["param_sha256"] != ref["param_sha256"]:
+        raise SmokeFailure("gpt2 drill: final parameters differ from the "
+                           "uninterrupted run's")
+    check_drill_child("gpt2 drill, relaunch", kid,
+                      want_launches(per_step, per_step, DRILL_STEPS - 2, 0))
+    saves = kid["checkpoint"]["saves"]
+    result = dict(
+        card=smi, model="gpt2-small", steps=DRILL_STEPS, kill_at=GPT2_KILL_AT,
+        supervisor_rc=rc, child_exits=child_exits(text) + [0],
+        supervisor_wall_s=wall, resumed_from=load["step"],
+        load_ms=load["ms"], load_bytes=load["bytes"],
+        save_ms=[s["ms"] for s in saves],
+        save_bytes=[s["bytes"] for s in saves],
+        peak_mem_gib=kid["peak_mem_bytes"] / 2 ** 30,
+        losses=kid["losses"], launches=kid["launches"],
+        launches_per_step=per_step, eval_launches={k: 0 for k in per_step})
+    log(f"  [{smi}] saves {[round(s['ms']) for s in saves]} ms of "
+        f"{saves[0]['bytes'] / 1e9:.3f} GB; load of step_2 {load['ms']:.0f} "
+        f"ms; peak memory {result['peak_mem_gib']:.1f} GiB")
+    log("gpt2 drill: " + json.dumps(result))
+    return result
+
+
+def lifecycle_path(smi: str, qwen_prefix: str):
+    """Phase 8: both drills, in a checkpoint directory that also holds the
+    children's logs and is removed at exit, also when a drill fails."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckroot:
+        qwen = qwen_drill(smi, qwen_prefix, ckroot, ckroot)
+        shutil.rmtree(os.path.join(ckroot, "qwen"), ignore_errors=True)
+        gpt2 = gpt2_drill(smi, ckroot, ckroot)
+    return qwen, gpt2
+
+
 def log_times(tag, times, lib, bnd):
     for k, (kms, pms) in times.items():
         log(f"  {tag}: {k:<16} kernel {kms:.3f} ms  plain {pms:.3f} ms  "
@@ -1284,6 +1594,14 @@ def main() -> int:
             "bytes")
     if any(st or ld for _, _, st, ld in ptxas):
         raise SmokeFailure("a kernel spills registers (ptxas above)")
+    if sys.argv[1:] == ["--lifecycle-only"]:
+        # phase 8 alone, over its own copy of phase 6's corpus
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            prefix = write_qwen_corpus(tmp)[0]
+            phase("phase 8: checkpoint, resume and the fault lifecycle")
+            lifecycle_path(smi, prefix)
+        log(smi)
+        return 0
 
     phase("phase 3: kernels against their plain versions")
     checks = {k: [] for k in KERNELS}
@@ -1420,13 +1738,27 @@ def main() -> int:
     phase("phase 7: main path of slice 5 (train_dist, Mixtral-8x7B widths, "
           "2 layers)")
     mixtral = mixtral_path(peak_flops, mixtral_prefix, mixtral_stats)
+    torch.cuda.empty_cache()
+
+    phase("phase 8: main path of slice 6 (checkpoint, resume and the fault "
+          "lifecycle: Qwen2.5-7B-width preemption drill, GPT-2 kill-mid-save "
+          "drill, under cli.supervise)")
+    qwen_drill_run, gpt2_drill_run = lifecycle_path(
+        smi, os.path.join(tmp, "qwen_corpus"))
     tmpdir.cleanup()
 
     # one block per path that runs the kernel: its launches beside the
     # times measured at that path's shape; the row's own keys are those of
-    # this slice's path (Mixtral-8x7B widths)
+    # this slice's path (the Qwen2.5-7B-width preemption drill, whose
+    # shapes are phase 6's)
     qwen_name = f"qwen2.5-7b-{QWEN_LAYERS}-layers"
     mixtral_name = f"mixtral-8x7b-{MIXTRAL_LAYERS}-layers"
+    drill_name = f"qwen2.5-7b-{QWEN_DRILL_LAYERS}-layers-preemption-drill"
+    gpt2_drill_name = "gpt2-small-kill-mid-save-drill"
+    qwen_drill_launches = dict(
+        launches=qwen_drill_run["launches_total"],
+        launches_per_step=qwen_drill_run["launches_per_step"],
+        eval_launches=qwen_drill_run["eval_launches"])
 
     def max_err(k, case, kinds=("elementwise", "abs", "exact")):
         return max(c["max_abs_err"] for c in checks[k]
@@ -1452,8 +1784,14 @@ def main() -> int:
                 k, gpt2, gpt2_timing,
                 max_err(k, "slice bf16", ("elementwise",)),
                 f"B={B} N=K={N} S={S} D={D} bf16 causal")
+            paths[gpt2_drill_name] = block(
+                k, gpt2_drill_run, gpt2_timing,
+                max_err(k, "slice bf16", ("elementwise",)),
+                f"B={B} N=K={N} S={S} D={D} bf16 causal")
             for path, run, res in ((qwen_name, qwen, qwen_flash),
-                                   (mixtral_name, mixtral, mixtral_flash)):
+                                   (mixtral_name, mixtral, mixtral_flash),
+                                   (drill_name, qwen_drill_launches,
+                                    qwen_flash)):
                 timing = res["timing"][k]
                 paths[path] = block(
                     k, run, timing,
@@ -1480,13 +1818,17 @@ def main() -> int:
                 k, mixtral, ce["timing"]["mixtral fp32"][k],
                 max_err(k, "mixtral fp32"),
                 f"T={MT} V={MV} fp32 logits (the path's dtype)")
+            paths[drill_name] = block(
+                k, qwen_drill_launches, ce["timing"]["fp32"][k],
+                max_err(k, "qwen fp32"),
+                f"T={QT} V={QV} fp32 logits (the path's dtype)")
             tol_rule = ("gold bit-equal, lse within 1e-4 absolute, dlogits "
                         "every element within tol * (rms(want) + |want|): "
                         "1e-4 in fp32, 2e-2 in bf16/fp16")
             tol, extra = TOL_FP32, {"bf16": ce["timing"]["bf16"][k]}
         row = dict(name=k, route=meta["route"], source=meta["source"],
                    replaces=meta["replaces"],
-                   library_call=meta["library_call"], **paths[mixtral_name],
+                   library_call=meta["library_call"], **paths[drill_name],
                    tol=tol, tol_rule=tol_rule, paths=paths, **extra)
         row["checks"] = checks[k]
         rows.append(row)

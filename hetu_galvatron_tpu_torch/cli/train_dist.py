@@ -3,50 +3,99 @@
 
 Counterpart of ``hetu_galvatron_tpu/cli/train_dist.py`` for its pp=1,
 single-device branch: load config -> initialize -> plan -> init model ->
-optimizer -> data -> step loop with timing and loss log -> exit code. On a
-CUDA device with ``model.use_flash_attn`` every layer's attention core is
-the port's ``flash_sdpa`` (the CUDA kernels K1-K3), the counterpart of the
-JAX launcher choosing the Pallas kernel on a TPU; ``model.use_fused_ce``
-runs the loss through ``fused_ce_nll`` (K4/K5) and
-``parallel.global_checkpoint`` remats every layer under
-``model.remat_policy``. A config with ``model.num_experts`` (Mixtral) runs
-its MoE layers and returns their router statistics in each step's
-``metrics["moe"]``, which the iteration log prints per layer. The run goes
-to the GPU unless ``device=cpu`` is given.
+optimizer -> data -> resume -> step loop with timing, loss log, fault
+checks and checkpoints -> exit code. On a CUDA device with
+``model.use_flash_attn`` every layer's attention core is the port's
+``flash_sdpa`` (the CUDA kernels K1-K3); ``model.use_fused_ce`` runs the
+loss through ``fused_ce_nll`` (K4/K5) and ``parallel.global_checkpoint``
+remats every layer under ``model.remat_policy``. A config with
+``model.num_experts`` (Mixtral) runs its MoE layers and returns their
+router statistics in each step's ``metrics["moe"]``, which the iteration
+log prints per layer. The run goes to the GPU unless ``device=cpu`` is
+given.
 
-Flags outside this slice raise with their name rather than being ignored.
+The checkpoint and fault lifecycle (JAX ``cli/train_dist.py:391-760`` and
+``main`` :1039-1060):
+
+* ``ckpt.save`` with ``ckpt.save_interval`` / ``ckpt.interval_s`` saves
+  through ``runtime/checkpoint.py`` (``ckpt.async_save``,
+  ``ckpt.snapshot_async``, ``ckpt.keep_last``, ``ckpt.save_timeout_s``);
+  ``ckpt.load`` resumes from the newest readable committed step (falling
+  back past a corrupt one), restores the AdamW state, the rerun
+  machine's history and the data position (``skip_batches`` replays
+  ``batches_consumed``), so the resumed run repeats the bits of a run
+  that never stopped;
+* SIGTERM / SIGINT (``supervisor.graceful_signals``) stop the loop at the
+  next step boundary with a checkpoint and exit 18 / 130;
+* ``rerun.*`` validates every step's loss before the update (the step is
+  split in ``forward_backward`` and the in-place AdamW update, so a
+  re-run sees the same leaves) and on a fault saves the untouched state
+  and exits 16 or 17; ``rerun.inject_kind`` drills nan / spike / crash /
+  preempt once at ``rerun.inject_at_iter``;
+* ``chaos.*`` fires the fault plan of ``runtime/chaos.py`` before each
+  step and in the save's commit window;
+* ``supervisor.auto_restart`` restarts the run in this process
+  (``run_with_restarts``) or, with ``supervisor.mode=process``, hands it
+  to ``cli/supervise.py``, which relaunches this module per attempt.
+
+The exit code is 0 when training completes, 16 / 17 on a rerun-machine
+fault, 18 after a preemption checkpoint, 130 after an operator's SIGINT,
+and 1 when the final loss is not finite.
+
+``extra.summary_path=<file>`` appends one JSON line per run to the file:
+the exit code, the first step, every loss (exact), evaluation losses, the
+step time, the checkpoint saves and load (ms and bytes), the kernel
+launch counts, the peak device memory and a SHA-256 of every parameter.
+It is how ``chip_smoke.py`` reads the children of a supervised drill.
+
+Flags outside this slice raise with their name rather than being ignored:
+``ckpt.load_format=hf``, ``train.rampup_batch_size``, the observability
+and logging-writer flags, ``supervisor.metrics_port``, tp overlap and the
+hierarchical dp reduction; a checkpoint of another world size raises
+``WorldSizeMismatchError``. This module imports torch only inside its
+functions, so the cross-process supervisor can share its flag check
+without touching the card.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import math
 import sys
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
-import torch
 
 
 def unsupported_flags(args) -> list:
     """Names of the set flags this slice of the port does not run."""
     flags = {
-        "ckpt.load": args.ckpt.load, "ckpt.save": args.ckpt.save,
-        "rerun.enable": args.rerun.enable,
-        "rerun.inject_kind": args.rerun.inject_kind != "none",
-        "chaos.enable": args.chaos.enable,
-        "chaos.kind": args.chaos.kind != "none",
+        "ckpt.load_format": args.ckpt.load_format == "hf",
         "observability.enabled": args.observability.enabled,
         "observability.flight_dir": args.observability.flight_dir,
         "tp_overlap.enable": args.tp_overlap.enable,
         "parallel.hier_dp": args.parallel.hier_dp,
         "train.rampup_batch_size": args.train.rampup_batch_size,
-        "supervisor.auto_restart": args.supervisor.auto_restart,
+        "supervisor.metrics_port": args.supervisor.metrics_port >= 0,
         "logging.tensorboard_dir": args.logging.tensorboard_dir,
         "logging.wandb_project": args.logging.wandb_project,
     }
     return [name for name, value in flags.items() if value]
 
 
+def check_flags(args) -> None:
+    bad = unsupported_flags(args)
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)}: not ported to hetu_galvatron_tpu_torch yet "
+            "(this slice runs single-device training with checkpoints, "
+            "resume and the fault lifecycle)")
+
+
 def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
+    import torch
+
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -69,8 +118,11 @@ def attention_overrides(cfg, device) -> Dict[int, Dict[str, Any]]:
 
 def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
           = None) -> Dict[str, Any]:
-    """Run ``args.train.train_iters`` steps; ``on_step(it, metrics)`` is
-    called after each (tools hook timers and the profiler here)."""
+    """Run ``args.train.train_iters`` steps, resuming from ``ckpt.load``;
+    ``on_step(it, metrics)`` is called after each step (tools hook timers
+    and the profiler here)."""
+    import torch
+
     from hetu_galvatron_tpu_torch.core.profiler.runtime_profiler import (
         RuntimeProfiler,
     )
@@ -79,24 +131,37 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         named_leaves,
     )
     from hetu_galvatron_tpu_torch.models.modules import compute_dtype_of
+    from hetu_galvatron_tpu_torch.observability.registry import get_registry
+    from hetu_galvatron_tpu_torch.runtime.chaos import make_chaos
+    from hetu_galvatron_tpu_torch.runtime.ckpt_paths import clear_resume_pin
+    from hetu_galvatron_tpu_torch.runtime.checkpoint import (
+        CheckpointCadence,
+        latest_checkpoint,
+        load_latest_resilient,
+        save_checkpoint,
+        try_read_checkpoint_meta,
+    )
     from hetu_galvatron_tpu_torch.runtime.dataloader import (
         get_train_valid_test_data_iterators,
+        skip_batches,
     )
     from hetu_galvatron_tpu_torch.runtime.hybrid_config import (
         get_hybrid_parallel_config,
     )
     from hetu_galvatron_tpu_torch.runtime.initialize import initialize
     from hetu_galvatron_tpu_torch.runtime.optimizer import make_optimizer
+    from hetu_galvatron_tpu_torch.runtime.rerun_machine import (
+        FaultDrill,
+        RerunDataIterator,
+        RerunStateMachine,
+    )
+    from hetu_galvatron_tpu_torch.runtime.supervisor import PreemptionGuard
     from hetu_galvatron_tpu_torch.runtime.trainer import (
+        make_forward_backward,
         make_loss_fn,
-        make_train_step,
     )
 
-    bad = unsupported_flags(args)
-    if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: not ported to hetu_galvatron_tpu_torch yet "
-            "(this slice runs plain single-device training)")
+    check_flags(args)
     state = initialize(args)
     device = state.device
     hpc = get_hybrid_parallel_config(args, state.world_size)
@@ -105,8 +170,9 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
     cfg = args.model
     params = init_causal_lm(cfg, seed=args.train.seed, device=device)
     tx = make_optimizer(args.train)
-    train_iter, valid_iter, test_iter = get_train_valid_test_data_iterators(
+    base_iter, valid_iter, test_iter = get_train_valid_test_data_iterators(
         args, global_batch_size=hpc.global_bsz)
+    data_iter = RerunDataIterator(base_iter)
     compute_dtype = compute_dtype_of(args.parallel.mixed_precision)
     overrides = attention_overrides(cfg, device)
     if overrides:
@@ -123,12 +189,121 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
     loss_kw = dict(compute_dtype=compute_dtype,
                    remat_flags=hpc.checkpoint_flags, layer_overrides=overrides)
     loss_fn = make_loss_fn(cfg, **loss_kw)
-    step = make_train_step(make_loss_fn(cfg, with_moe_stats=moe, **loss_kw),
-                           tx, chunks=hpc.chunks, aux_stats=moe)
+    forward_backward = make_forward_backward(
+        make_loss_fn(cfg, with_moe_stats=moe, **loss_kw), chunks=hpc.chunks,
+        aux_stats=moe)
     names, leaves = zip(*named_leaves(params))
-    opt_state = tx.init(list(leaves), names)
+    leaves = list(leaves)
+    opt_state = tx.init(leaves, names)
     profiler = RuntimeProfiler(args, device=device)
     use_dropout = cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0
+    rerun = RerunStateMachine(args.rerun)
+    # SIGTERM/SIGINT become a checkpoint-and-exit at the next step boundary
+    guard = PreemptionGuard(enabled=args.supervisor.graceful_signals)
+    drill = FaultDrill(args.rerun)
+    chaos = make_chaos(args, log=state.log)
+    if chaos is not None:
+        chaos.install()
+        state.log(f"chaos: armed faults {chaos.pending()}")
+    ck = args.ckpt
+    cadence = CheckpointCadence(
+        ck, hpc=hpc, log=state.log,
+        hooks=chaos.save_hooks() if chaos is not None else None)
+    reg = get_registry()
+    ckpt_log: Dict[str, Any] = {"saves": [], "load": None}
+
+    def device_batch(raw, it):
+        batch = _to_device(raw, device)
+        if use_dropout:
+            # per-iteration stream, reproducible from (seed, it): a re-run
+            # of the step draws the same masks from a fresh generator
+            batch["dropout_rng"] = torch.Generator(device=device).manual_seed(
+                args.train.seed * 1_000_003 + it)
+        return batch
+
+    def train_state_at(step, batches):
+        """The full-state-resume payload of meta.json: the data position
+        (committed batches), the seed the dropout streams derive from, the
+        rerun machine's fault history."""
+        ts = {"step": step, "seed": args.train.seed, "telemetry_step": step,
+              "batches_consumed": batches, "consumed_samples": None}
+        if rerun.enabled:
+            ts["rerun"] = rerun.state_dict()
+        return ts
+
+    def save_now(step, batches):
+        """A synchronous save outside the cadence (preemption, fault)."""
+        cadence.drain()  # never race an in-flight save
+        save_checkpoint(ck.save, step, params, opt_state, hpc=hpc,
+                        train_state=train_state_at(step, batches),
+                        keep_last=ck.keep_last, hooks=cadence.hooks)
+        record_save(step, sync=True)
+
+    def record_save(step, sync):
+        rec = {"step": step}
+        if sync:
+            rec.update(ms=reg.gauge("checkpoint/save_ms").value,
+                       bytes=int(reg.gauge("checkpoint/save_bytes").value))
+        ckpt_log["saves"].append(rec)
+        state.log(f"saved checkpoint at iter {step}" + (
+            f" ({rec['bytes'] / 1e9:.2f} GB in {rec['ms']:.0f} ms)"
+            if sync else ""))
+
+    def maybe_resume() -> int:
+        """Restore params, AdamW state, rerun history and data position;
+        returns the first iteration to run."""
+        if not ck.load or latest_checkpoint(ck.load) is None:
+            return 0
+        # a checkpoint of another world size raises WorldSizeMismatchError
+        # (the elastic path is not ported); corruption falls back to the
+        # previous committed step
+        res = load_latest_resilient(
+            ck.load, params, opt_state, hpc=hpc,
+            strict_plan=ck.distributed_checkpoint, expected_world=1,
+            log=state.log)
+        if res is None:
+            state.log(f"warning: {ck.load}: committed checkpoint vanished "
+                      "before resume; starting fresh")
+            return 0
+        _, _, start, ckdir = res
+        ckpt_log["load"] = {
+            "step": start, "dir": ckdir,
+            "ms": reg.gauge("checkpoint/load_ms").value,
+            "bytes": int(reg.gauge("checkpoint/load_bytes").value)}
+        state.log(f"resumed from {ckdir} at iter {start}")
+        # the supervisor's cross-process GC lease protected this restore;
+        # now that the read landed, retention may proceed
+        clear_resume_pin(ck.load)
+        meta, meta_err = try_read_checkpoint_meta(ckdir)
+        if meta_err is not None:
+            state.log(f"warning: {ckdir}/meta.json unreadable ({meta_err}); "
+                      "resuming without the train_state payload (position "
+                      "reconstructed from the step number)")
+        stored = meta.get("hybrid_parallel_config") or {}
+        ts = meta.get("train_state") or {}
+        if ts.get("seed") not in (None, args.train.seed):
+            state.log(f"warning: checkpoint seed {ts['seed']} != current "
+                      f"{args.train.seed}: the replayed data stream and "
+                      "dropout streams will differ from the original run")
+        if ts.get("rerun") and rerun.enabled:
+            rerun.load_state_dict(ts["rerun"])
+        skip = ts.get("batches_consumed")
+        if skip is None:
+            skip = start  # no train_state: position := step
+        sbsz = stored.get("global_bsz")
+        if sbsz and sbsz != hpc.global_bsz:
+            # skip the SAMPLES the original run consumed
+            skip = int(math.ceil(skip * sbsz / hpc.global_bsz))
+            state.log(f"warning: resuming a run trained at global_bsz "
+                      f"{sbsz} with global_bsz {hpc.global_bsz}; "
+                      f"fast-forwarding {skip} batches to preserve data "
+                      "order")
+        elif stored.get("chunks") not in (None, hpc.chunks):
+            state.log(f"warning: checkpoint chunks {stored.get('chunks')} "
+                      f"!= current {hpc.chunks}; gradient accumulation "
+                      "boundaries will differ from the original run")
+        skip_batches(data_iter, skip)
+        return start
 
     def run_eval(iterator) -> float:
         with torch.no_grad():
@@ -136,53 +311,206 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
                   for _ in range(max(args.train.eval_iters, 1))]
         return float(np.mean(vs))
 
+    try:
+        start_iter = maybe_resume()
+    except BaseException:
+        if chaos is not None:
+            chaos.uninstall()  # its I/O faults also reach the resume reads
+        raise
     losses, val_losses = [], []
-    for it in range(args.train.train_iters):
-        profiler.time_start(it)
-        batch = _to_device(next(train_iter), device)
-        if use_dropout:
-            # per-iteration stream, reproducible from (seed, it)
-            batch["dropout_rng"] = torch.Generator(device=device).manual_seed(
-                args.train.seed * 1_000_003 + it)
-        params, opt_state, metrics = step(params, opt_state, batch)
-        profiler.time_end(it)
-        profiler.iteration_log(it, metrics, lr=tx.schedule(it))
-        losses.append(float(metrics["loss"]))
-        if on_step is not None:
-            on_step(it, metrics)
-        if (valid_iter is not None and args.train.eval_interval
-                and (it + 1) % args.train.eval_interval == 0):
-            v = run_eval(valid_iter)
-            val_losses.append({"iter": it + 1, "loss": v})
-            state.log(f"iter {it + 1}: validation loss {v:.4f}")
+    exit_code = None
+    drill.arm(start_iter)
+    guard.__enter__()
+    try:
+        for it in range(start_iter, args.train.train_iters):
+            profiler.time_start(it)
+            if chaos is not None:
+                # before the update: 'crash at step k' loses exactly the
+                # steps since the last commit
+                chaos.on_step(it)
+            raw = next(data_iter)
+            grads, metrics = forward_backward(params, device_batch(raw, it))
+            if not rerun.enabled:
+                # nothing judges the loss: enqueue the update before the
+                # host waits for the loss
+                opt_state = tx.update(leaves, grads, opt_state,
+                                      metrics["grad_norm"])
+            # the drill may corrupt the loss (nan / spike), raise
+            # InjectedCrash or deliver a real SIGTERM to this process
+            lossf = drill.apply(float(metrics["loss"]), it)
+            # the rerun machine judges the loss before the in-place update
+            # and may re-run forward and backward on the same leaves
+            rerun.validate_result(
+                lossf, it,
+                rerun_fn=((lambda: float(forward_backward(
+                    params, device_batch(raw, it))[1]["loss"]))
+                    if rerun.enabled else None),
+                data_iterator=data_iter)
+            exit_code = rerun.exit_code_requested()
+            if rerun.enabled and exit_code is None:
+                opt_state = tx.update(leaves, grads, opt_state,
+                                      metrics["grad_norm"])
+            del grads
+            profiler.time_end(it)
+            profiler.iteration_log(it, metrics, lr=tx.schedule(it))
+            data_iter.advance()
+            losses.append(lossf)
+            if on_step is not None:
+                on_step(it, metrics)
+            if exit_code is not None:
+                # a fault: the update was not applied, so the leaves hold
+                # the state before iteration `it`; save it there, with the
+                # position before its batch, and let the relaunch re-run it
+                state.log(f"rerun machine requested exit (code "
+                          f"{exit_code}); checkpointing pre-fault state")
+                if ck.save:
+                    save_now(it, data_iter.batches_consumed - 1)
+                break
+            if (valid_iter is not None and args.train.eval_interval
+                    and (it + 1) % args.train.eval_interval == 0):
+                v = run_eval(valid_iter)
+                val_losses.append({"iter": it + 1, "loss": v})
+                state.log(f"iter {it + 1}: validation loss {v:.4f}")
+            if cadence.due(it):
+                cadence.save(it + 1, params, opt_state,
+                             train_state=train_state_at(
+                                 it + 1, data_iter.batches_consumed))
+                record_save(it + 1, sync=not (ck.async_save
+                                              or ck.snapshot_async))
+            if guard.requested():
+                # preemption / interrupt at a step boundary: checkpoint the
+                # post-update state at it + 1 (unless the cadence just did)
+                exit_code = guard.exit_code()
+                state.log("stop signal received; checkpointing at iter "
+                          f"{it + 1} and exiting (code {exit_code})")
+                if ck.save and not (ck.save_interval and
+                                    (it + 1) % ck.save_interval == 0):
+                    save_now(it + 1, data_iter.batches_consumed)
+                break
+    finally:
+        guard.__exit__()
+        if chaos is not None:
+            chaos.uninstall()
+        try:
+            # drain async saves even on the crash path: an in-process
+            # restart must never inherit live background writes
+            cadence.drain()
+        except Exception as e:  # noqa: BLE001 — never mask the crash
+            state.log(f"warning: async checkpoint drain failed: {e}")
     test_loss = None
-    if test_iter is not None and losses:
+    if test_iter is not None and losses and exit_code is None:
         test_loss = run_eval(test_iter)
         state.log(f"test loss {test_loss:.4f}")
     if args.profile.profile:
         state.log(f"mean iter time: {profiler.filtered_time_ms():.2f} ms")
+    if rerun.enabled and rerun.records:
+        state.log(f"rerun report: {rerun.report()}")
     return {"losses": losses, "val_losses": val_losses,
             "test_loss": test_loss, "iter_ms": profiler.filtered_time_ms(),
-            "params": params, "exit_code": None}
+            "params": params, "opt_state": opt_state,
+            "start_iter": start_iter, "checkpoint": ckpt_log,
+            "rerun": rerun.report() if rerun.enabled else None,
+            "exit_code": exit_code}
+
+
+def _exit_code(out: Dict[str, Any]) -> int:
+    if out.get("exit_code") is not None:
+        return out["exit_code"]  # the 16/17/18/130 contract
+    if not out["losses"]:
+        return 0
+    return 0 if np.isfinite(out["losses"][-1]) else 1
 
 
 def _finish(out: Dict[str, Any]) -> int:
-    if out.get("exit_code") is not None:
-        return out["exit_code"]
-    if not out["losses"]:
-        print("training done: 0 iters (nothing left to train)")
-        return 0
-    final = out["losses"][-1]
-    print(f"training done: {len(out['losses'])} iters, final loss {final:.4f}")
-    return 0 if np.isfinite(final) else 1
+    if out.get("exit_code") is None:
+        if not out["losses"]:
+            print("training done: 0 iters (nothing left to train)")
+        else:
+            print(f"training done: {len(out['losses'])} iters, final loss "
+                  f"{out['losses'][-1]:.4f}")
+    return _exit_code(out)
+
+
+def run_summary(out: Dict[str, Any], code: int) -> Dict[str, Any]:
+    """The JSON record ``extra.summary_path`` appends for one run."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.models.builder import named_leaves
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    digests = {}
+    for name, t in named_leaves(out["params"]):
+        digests[name] = hashlib.sha256(
+            t.detach().cpu().contiguous().numpy()).hexdigest()
+    leaf = next(iter(named_leaves(out["params"])))[1]
+    cuda = leaf.is_cuda
+    return {
+        "exit_code": code, "start_iter": out["start_iter"],
+        "losses": out["losses"], "val_losses": out["val_losses"],
+        "test_loss": out["test_loss"], "iter_ms": out["iter_ms"],
+        "checkpoint": out["checkpoint"], "rerun": out["rerun"],
+        "launches": dict(_build.launch_counts),
+        "device": torch.cuda.get_device_name(leaf.device) if cuda else "cpu",
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(leaf.device)
+                           if cuda else None),
+        "param_sha256": digests,
+    }
+
+
+def _run_once(args) -> Dict[str, Any]:
+    """One attempt; appends its summary line when asked to."""
+    out = train(args)
+    path = args.extra.get("summary_path")
+    if path:
+        with open(path, "a") as f:
+            f.write(json.dumps(run_summary(out, _exit_code(out))) + "\n")
+    return out
 
 
 def main(argv=None) -> int:
     from hetu_galvatron_tpu_torch.core.arguments import args_from_cli
 
-    args = args_from_cli(list(argv if argv is not None else sys.argv[1:]),
-                         mode="train_dist")
-    return _finish(train(args))
+    base_argv = list(argv if argv is not None else sys.argv[1:])
+    args = args_from_cli(base_argv, mode="train_dist")
+    check_flags(args)
+    sup = args.supervisor
+    if sup.auto_restart and sup.mode == "process":
+        # the production restart loop: cli/supervise.py relaunches this
+        # module as a child per attempt; nothing here has touched torch
+        from hetu_galvatron_tpu_torch.cli.supervise import run_supervised
+
+        return run_supervised(args, base_argv)
+    if not sup.auto_restart:
+        return _finish(_run_once(args))
+
+    # in-process restarts: 16 / 18 and crashes resume from the last
+    # committed checkpoint, 17 and 130 surface
+    from hetu_galvatron_tpu_torch.runtime.checkpoint import latest_checkpoint
+    from hetu_galvatron_tpu_torch.runtime.supervisor import run_with_restarts
+
+    last: Dict[str, Any] = {}
+
+    def attempt() -> int:
+        if args.ckpt.save and (not args.ckpt.load
+                               or latest_checkpoint(args.ckpt.save)):
+            # resume from this run's own progress as soon as it has a
+            # committed checkpoint
+            args.ckpt.load = args.ckpt.save
+        out = _run_once(args)
+        last["out"] = out
+        return out.get("exit_code") or 0
+
+    rc = run_with_restarts(
+        attempt, max_restarts=sup.max_restarts,
+        base_delay=sup.backoff_base_s, max_delay=sup.backoff_max_s,
+        restart_on_error=sup.restart_on_error,
+        # the budget bounds crash LOOPS: an attempt that committed a new
+        # checkpoint resets the restart counter
+        progress_fn=((lambda: latest_checkpoint(args.ckpt.save))
+                     if args.ckpt.save else None))
+    if rc != 0:
+        return rc
+    return _finish(last["out"])
 
 
 if __name__ == "__main__":

@@ -161,8 +161,28 @@ class TrainArgs:
 
 @dataclass
 class CheckpointArgs:
+    """JAX ``core/args_schema.py:307``; ``runtime/checkpoint.py`` reads it.
+    ``load_format=hf`` (HF weight import) is refused by the launcher."""
+
     save: Optional[str] = None
     load: Optional[str] = None
+    save_interval: int = 0
+    load_format: str = "galvatron"
+    async_save: bool = False
+    # resume asserts the stored plan fingerprint equals the live one
+    distributed_checkpoint: bool = True
+    # keep only the newest N committed step dirs (0 = keep all)
+    keep_last: int = 0
+    # wall-clock cadence beside save_interval (seconds; 0 = steps only)
+    interval_s: float = 0.0
+    # on-step device snapshot + background writer (AsyncCheckpointer)
+    snapshot_async: bool = False
+    # watchdog deadline for one background write
+    save_timeout_s: float = 120.0
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "load_format": ("galvatron", "hf"),
+    }
 
 
 @dataclass
@@ -200,22 +220,76 @@ class ObservabilityArgs:
 
 @dataclass
 class RerunArgs:
+    """JAX ``core/args_schema.py:509``; ``runtime/rerun_machine.py``."""
+
     enable: bool = False
+    mode: str = "disabled"
+    error_injection_rate: float = 0.0
+    error_injection_type: str = "transient_error"
+    check_for_nan: bool = True
+    check_for_spike: bool = True
+    spike_factor: float = 10.0
+    # one-shot drill at inject_at_iter on fresh runs (FaultDrill)
     inject_kind: str = "none"
+    inject_at_iter: int = -1
+    inject_spike_scale: float = 100.0
+
     CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "mode": ("disabled", "validate_results", "report_stats"),
+        "error_injection_type": ("transient_error", "persistent_error",
+                                 "correct_result"),
         "inject_kind": ("none", "nan", "spike", "crash", "preempt"),
     }
 
 
 @dataclass
 class ChaosArgs:
+    """JAX ``core/args_schema.py:543``; ``runtime/chaos.py``."""
+
     enable: bool = False
+    # comma-separated ``kind@iter`` plan; wins over kind/at_iter
+    plan: Optional[str] = None
     kind: str = "none"
+    at_iter: int = -1
+    seed: int = 0
+    io_error_count: int = 2
+    io_error_op: str = "checkpoint"
+    hang_s: float = 5.0
+    # CHAOS_FIRED_<i> markers; None derives ckpt.save
+    state_dir: Optional[str] = None
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "kind": ("none", "crash", "sigterm", "sigkill", "kill_mid_save",
+                 "hung_save", "corrupt_meta", "truncate_meta", "io_error"),
+    }
 
 
 @dataclass
 class SupervisorArgs:
+    """JAX ``core/args_schema.py:581``; ``runtime/supervisor.py`` and
+    ``cli/supervise.py``."""
+
+    # trap SIGTERM/SIGINT and checkpoint-and-exit at the next step boundary
+    graceful_signals: bool = True
     auto_restart: bool = False
+    max_restarts: int = 3
+    backoff_base_s: float = 1.0
+    backoff_max_s: float = 60.0
+    restart_on_error: bool = True
+    # inprocess: run_with_restarts around train(); process: cli/supervise
+    mode: str = "inprocess"
+    # process mode: SIGTERM forwarded to the child escalates to SIGKILL
+    # after this window; it must exceed one checkpoint save
+    term_grace_s: float = 15.0
+    state_file: Optional[str] = None
+    max_world_changes: int = 8
+    # /healthz port (-1 off); the endpoint is not ported yet
+    metrics_port: int = -1
+    poll_interval_s: float = 0.5
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "mode": ("inprocess", "process"),
+    }
 
 
 # keys the JAX schema defines that this package does not read (yet); a
@@ -232,9 +306,7 @@ JAX_ONLY_KEYS: Dict[str, frozenset] = {
     "tp_overlap": frozenset(),
     "train": frozenset({"check_loss", "deterministic_mode",
                         "decrease_batch_size_if_needed"}),
-    "ckpt": frozenset({"save_interval", "load_format", "async_save",
-                       "distributed_checkpoint", "keep_last", "interval_s",
-                       "snapshot_async", "save_timeout_s"}),
+    "ckpt": frozenset(),
     "data": frozenset({"tokenizer_type", "tokenizer_path", "num_workers"}),
     "profile": frozenset({"profile_type", "profile_forward",
                           "save_profiled_memory", "profiler_dir",
@@ -253,17 +325,9 @@ JAX_ONLY_KEYS: Dict[str, frozenset] = {
         "top_k", "eos_id", "request_timeout_s", "flush_interval",
         "metrics_path", "metrics_port", "metrics_host", "trace_requests",
         "slo_ttft_ms", "slo_itl_ms", "flight_dir", "flight_events"}),
-    "rerun": frozenset({"mode", "error_injection_rate",
-                        "error_injection_type", "check_for_nan",
-                        "check_for_spike", "spike_factor", "inject_at_iter",
-                        "inject_spike_scale"}),
-    "chaos": frozenset({"plan", "at_iter", "seed", "io_error_count",
-                        "io_error_op", "hang_s", "state_dir"}),
-    "supervisor": frozenset({
-        "graceful_signals", "max_restarts", "backoff_base_s",
-        "backoff_max_s", "restart_on_error", "mode", "term_grace_s",
-        "state_file", "max_world_changes", "metrics_port",
-        "poll_interval_s"}),
+    "rerun": frozenset(),
+    "chaos": frozenset(),
+    "supervisor": frozenset(),
     "search": frozenset({
         "num_nodes", "num_devices_per_node", "memory_constraint", "min_bsz",
         "max_bsz", "bsz_scale", "settle_bsz", "settle_chunks",

@@ -243,7 +243,9 @@ def _dropless_dispatch(p: Params, xt: torch.Tensor, topk_idx: torch.Tensor,
     ws = w.reshape(T * K)[order]
     # each token row receives its k addends onto zero; for k <= 2 every
     # order of the adds gives the same bits (0 + a + b == 0 + b + a), so
-    # this equals the JAX scatter-add exactly, which does not hold for k > 2
+    # this equals the JAX scatter-add exactly; for k > 2 the order may
+    # differ, and tests/test_torch_moe.py::test_torch_dropless_dispatch_
+    # top3_matches_jax_scatter_add holds it within a few ULP
     return torch.zeros((T, H), dtype=torch.float32,
                        device=xt.device).index_add(
         0, tok_sorted, torch.cat(ys).float() * ws[:, None])

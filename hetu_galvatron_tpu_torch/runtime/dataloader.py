@@ -5,7 +5,8 @@ deterministic random-token dataset, the indexed corpus of
 ``data/indexed_dataset.py`` split into train/valid/test document ranges,
 end-of-document loss masking and packed-document fields
 (``position_ids`` / ``segment_ids``), giving the same numpy batches for the
-same seed and position. Not ported yet, and raising: ``s3://`` corpus
+same seed and position; ``skip_batches`` replays a resumed run's data
+position. Not ported yet, and raising: ``s3://`` corpus
 prefixes, the bert/t5 batch shapes and the zigzag cp layout.
 """
 
@@ -62,6 +63,21 @@ def synthetic_batches(model: ModelArgs, global_batch_size: int, *,
                for j in range(global_batch_size)]
         yield make_batch(np.stack([ds[j] for j in idx]))
         i += 1
+
+
+def skip_batches(it: Iterator, n: int) -> None:
+    """Fast-forward ``n`` global batches: the resume's replay of the data
+    stream (JAX ``runtime/dataloader.py::skip_batches`` :117). Replaying,
+    not seeking, leaves every stateful stage after the raw reader (the
+    packed-document fields, the eod masking) in the state the first run
+    left it in. A rerun-machine wrapper is committed per batch, so the
+    replayed prefix does not pile up in its rewind cache and its
+    ``batches_consumed`` counts the replayed batches."""
+    advance = getattr(it, "advance", None)
+    for _ in range(int(n)):
+        next(it)
+        if advance is not None:
+            advance()
 
 
 _SPLIT_INDEX = {"train": 0, "valid": 1, "test": 2}

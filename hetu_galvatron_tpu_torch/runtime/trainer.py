@@ -7,6 +7,10 @@ microbatch's share of valid tokens, so a chunked step equals the unchunked
 one even under a non-uniform loss mask. The step runs eagerly: PyTorch has
 no counterpart of the jitted scan, and none is needed here.
 
+``make_forward_backward`` is the step's first half (loss, gradients,
+norm) and leaves the parameters untouched; ``make_train_step`` adds the
+in-place AdamW update.
+
 With ``aux_stats`` the loss function returns ``(loss, stats)`` (the MoE
 layers' router statistics by ``layer{i}``) and the stats come back in
 ``metrics["moe"]``: over microbatches, loss-like stats are weighted by each
@@ -85,21 +89,17 @@ def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]):
             for p, g in zip(leaves, grads)]
 
 
-def make_train_step(loss_fn: Callable, tx: AdamW, *, chunks: int = 1,
-                    aux_stats: bool = False, hier: Optional[Any] = None
-                    ) -> Callable:
-    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; parameters and the optimizer state are updated in place and
-    returned. ``batch`` holds tensors on the run's device and may carry a
-    per-step ``dropout_rng`` (a ``torch.Generator``). ``opt_state`` comes
-    from ``tx.init`` over ``named_leaves(params)`` (with the names, so that
-    expert-bias leaves take SGD)."""
-    if hier is not None:
-        raise NotImplementedError(
-            "the hierarchical dp gradient reduction (hier_dp) is not ported "
-            "yet")
+def make_forward_backward(loss_fn: Callable, *, chunks: int = 1,
+                          aux_stats: bool = False) -> Callable:
+    """Returns ``forward_backward(params, batch) -> (grads, metrics)``: the
+    first half of a training step, which leaves the parameters untouched.
+    ``metrics`` holds the step's ``loss``, the global ``grad_norm`` and,
+    with ``aux_stats``, the MoE stats under ``moe``. The launcher calls
+    the two halves apart so that its rerun machine can judge the loss,
+    and re-run forward and backward on the same leaves, before the
+    in-place update; :func:`make_train_step` joins them."""
 
-    def step(params, opt_state, batch):
+    def forward_backward(params, batch):
         leaves = [t for _, t in named_leaves(params)]
         stats: Dict[str, Any] = {}
         if chunks <= 1:
@@ -135,11 +135,34 @@ def make_train_step(loss_fn: Callable, tx: AdamW, *, chunks: int = 1,
                 loss = loss + w * l.detach()
             if aux_stats:
                 stats = _reduce_stats(stacked, weights)
-        gnorm = global_grad_norm(grads)
-        opt_state = tx.update(leaves, grads, opt_state, gnorm)
-        metrics = {"loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": loss, "grad_norm": global_grad_norm(grads)}
         if aux_stats:
             metrics["moe"] = stats
+        return grads, metrics
+
+    return forward_backward
+
+
+def make_train_step(loss_fn: Callable, tx: AdamW, *, chunks: int = 1,
+                    aux_stats: bool = False, hier: Optional[Any] = None
+                    ) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; parameters and the optimizer state are updated in place and
+    returned. ``batch`` holds tensors on the run's device and may carry a
+    per-step ``dropout_rng`` (a ``torch.Generator``). ``opt_state`` comes
+    from ``tx.init`` over ``named_leaves(params)`` (with the names, so that
+    expert-bias leaves take SGD)."""
+    if hier is not None:
+        raise NotImplementedError(
+            "the hierarchical dp gradient reduction (hier_dp) is not ported "
+            "yet")
+    forward_backward = make_forward_backward(loss_fn, chunks=chunks,
+                                             aux_stats=aux_stats)
+
+    def step(params, opt_state, batch):
+        grads, metrics = forward_backward(params, batch)
+        leaves = [t for _, t in named_leaves(params)]
+        opt_state = tx.update(leaves, grads, opt_state, metrics["grad_norm"])
         return params, opt_state, metrics
 
     return step

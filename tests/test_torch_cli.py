@@ -71,10 +71,11 @@ def test_torch_train_dist_with_dropout_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [
-    "parallel.pp_deg=2", "ckpt.save=/tmp/x", "ckpt.load=/tmp/x",
-    "rerun.enable=true", "chaos.enable=true", "observability.enabled=true",
+    "parallel.pp_deg=2", "ckpt.load_format=hf",
+    "observability.flight_dir=/tmp/x", "logging.tensorboard_dir=/tmp/x",
+    "logging.wandb_project=x", "observability.enabled=true",
     "tp_overlap.enable=true", "parallel.hier_dp=true",
-    "train.rampup_batch_size=[2,2,8]", "supervisor.auto_restart=true",
+    "train.rampup_batch_size=[2,2,8]", "supervisor.metrics_port=0",
     "parallel.global_tp_deg=2", "parallel.global_ep_deg=2",
     "parallel.num_devices=2", "parallel.num_processes=2",
     "parallel.config_mode=json", "parallel.sdp=1",

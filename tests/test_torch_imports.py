@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
-the packages its card's machine lacks (PyYAML, pydantic, optax,
-transformers)."""
+the packages its card's machine lacks (PyYAML, pydantic, optax, orbax,
+transformers). The lifecycle modules the cross-process supervisor runs
+import no torch either: the card belongs to its children."""
 
 import ast
 import os
@@ -9,7 +10,23 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "hetu_galvatron_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "yaml", "pydantic", "optax", "transformers")
+BLOCKED = ("jax", "jaxlib", "yaml", "pydantic", "optax", "orbax",
+           "transformers")
+# every module of the checkpoint and fault lifecycle; the first six are
+# what the process supervisor imports, and they must not need torch
+LIFECYCLE = (
+    "hetu_galvatron_tpu_torch.cli.supervise",
+    "hetu_galvatron_tpu_torch.runtime.supervisor",
+    "hetu_galvatron_tpu_torch.runtime.ckpt_paths",
+    "hetu_galvatron_tpu_torch.runtime.rerun_machine",
+    "hetu_galvatron_tpu_torch.utils.retrying",
+    "hetu_galvatron_tpu_torch.observability.registry",
+    "hetu_galvatron_tpu_torch.runtime.chaos",
+    "hetu_galvatron_tpu_torch.cli.train_dist",
+    "hetu_galvatron_tpu_torch.runtime.checkpoint",
+    "hetu_galvatron_tpu_torch.runtime.dataloader",
+    "hetu_galvatron_tpu_torch.runtime.trainer",
+)
 JAX_PKG = "hetu_galvatron_tpu"
 
 
@@ -30,6 +47,7 @@ def test_torch_blocked_name_check_respects_the_prefix():
     assert _is_blocked("hetu_galvatron_tpu")
     assert _is_blocked("hetu_galvatron_tpu.models.modules")
     assert _is_blocked("jax.numpy") and _is_blocked("yaml")
+    assert _is_blocked("orbax.checkpoint")
     assert not _is_blocked("hetu_galvatron_tpu_torch.models.modules")
     assert not _is_blocked("jaxtyping") and not _is_blocked("yamlish")
 
@@ -65,6 +83,7 @@ import hetu_galvatron_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+assert set({LIFECYCLE!r}) <= set(mods), set({LIFECYCLE!r}) - set(mods)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m == {JAX_PKG!r}
                 or m.startswith({JAX_PKG!r} + "."))
@@ -76,3 +95,26 @@ print(len(mods))
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20
+
+
+def test_torch_supervisor_side_imports_no_torch():
+    """The supervisor process (``cli/supervise.py`` and what it imports,
+    with ``cli/train_dist.py``'s flag check) runs with torch poisoned."""
+    code = f"""
+import importlib, sys
+for name in {BLOCKED!r} + ("torch",):
+    sys.modules[name] = None
+for m in {LIFECYCLE[:6] + LIFECYCLE[7:8]!r}:
+    importlib.import_module(m)
+from hetu_galvatron_tpu_torch.cli.train_dist import check_flags
+from hetu_galvatron_tpu_torch.core.arguments import load_config
+check_flags(load_config("hetu_galvatron_tpu/models/configs/gpt2-small.yaml",
+                        ["supervisor.auto_restart=true",
+                         "supervisor.mode=process"]))
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"

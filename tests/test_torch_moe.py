@@ -196,6 +196,28 @@ def test_torch_dropless_dispatch_matches_jax_and_uncapped_capacity():
                                got.detach().numpy(), **OUT_TOL)
 
 
+@pytest.mark.parametrize("k", [3, 4])
+def test_torch_dropless_dispatch_top3_matches_jax_scatter_add(k):
+    """Dropless at top-k > 2 (6 experts): each token row sums its k
+    weighted expert outputs, the port with ``index_add`` and JAX with a
+    scatter-add, in orders that may differ. Only the order of k fp32 adds
+    separates them, so every element agrees within a few ULP of the row's
+    largest addend: |got - want| <= 4e-7 x max |want| (fp32's epsilon is
+    1.2e-7; the observed worst is 1.6e-7 x max |want|)."""
+    jcfg, tcfg = _cfgs(moe_dispatcher="dropless", num_experts=6, moe_topk=k)
+    npy, tp = _moe_params(jcfg, seed=11)
+    xt = _x((48, 32), seed=12, scale=4.0)
+    _assert_gap(_select_scores(npy, xt, jcfg), k)
+    jp, (jidx, jw), (tidx, tw) = _routed(npy, tp, jcfg, tcfg, xt)
+    assert tidx.shape == (48, k)
+    want = np.asarray(jax.jit(lambda p, x, i, w: JMoE._dropless_dispatch(
+        p, x, i, w, jcfg, jnp.float32))(jp, jnp.asarray(xt), jidx, jw))
+    got = TMoE._dropless_dispatch(tp, torch.from_numpy(xt), tidx, tw, tcfg,
+                                  torch.float32).detach().numpy()
+    limit = 4e-7 * np.abs(want).max()
+    assert np.abs(got - want).max() <= limit
+
+
 @pytest.mark.parametrize("dispatcher", ["capacity", "dropless"])
 def test_torch_moe_mlp_with_shared_experts_matches_jax(dispatcher):
     jcfg, tcfg = _cfgs(num_shared_experts=1, moe_dispatcher=dispatcher,
