@@ -34,7 +34,17 @@ each of which ends the run with a non-zero exit when it fails:
    the autograd composition;
    At the Mixtral path's shapes: K1-K3 at B=2, N=32, K=8, S=4096, D=128
    (bf16, causal, the segments of the path's first batch that packs
-   several documents in every row) and K4/K5 at T=8192, V=32000 (fp32);
+   several documents in every row) and K4/K5 at T=8192, V=32000 (fp32).
+   At the zoo paths' shapes (phases 9-11), all bf16 for K1-K3 and fp32
+   logits for K4/K5: BERT's B=32, N=K=16, S=512, D=64 non-causal; T5's
+   B=16, N=K=32, S=256, D=64 three ways (the encoder's non-causal
+   self-attention, the decoder's causal self-attention and the
+   non-causal cross-attention, q from its own projection and k/v from the
+   fused kv projection of the encoder memory); Llama's B=1, N=64, K=8,
+   S=8192, D=128 over the documents of the path's first batch (the plain
+   versions run over 8 slices of the kv heads: the dense scores of all 64
+   heads would take 17 GB a tensor); K4/K5 at T=8192, V=128256, T=16384,
+   V=30592 and T=4096, V=32128;
 4. reference: small models trained a few steps on the card, the flash
    kernels against the plain attention core, and fused cross-entropy with
    per-layer remat and packed documents against the plain loss without
@@ -76,6 +86,24 @@ each of which ends the run with a non-zero exit when it fails:
    removed at exit, with the children's logs (a failing drill prints the
    end of its log).
    ``python3 chip_smoke.py --lifecycle-only`` runs phases 1, 2 and 8 alone.
+9. main path of slice 7: ``train`` on ``llama3.1-70b.yaml`` at full width
+   (llama3 rope scaling, GQA 64:8, SwiGLU 28672, vocab 128256, untied
+   head) cut to 2 layers, bsz 1 at seq 8192, bf16, fused cross-entropy,
+   remat on every layer, over a seeded packed corpus in Llama 3's
+   vocabulary (eod 128001, documents of about 3000 tokens);
+10. ``bert-large.yaml`` at full depth (24 post-norm layers, bidirectional
+    flash, tied MLM head, vocab 30592), bsz 32 at seq 512, random tokens
+    through the masked-LM batches, fused cross-entropy over the masked
+    loss, no remat;
+11. ``t5-3b.yaml`` at full depth (24 encoder + 24 decoder layers), bsz 16
+    at seq 512 split into 256 + 256, fused cross-entropy, remat on every
+    layer of both stacks; flash runs the encoder's self-attention, the
+    decoder's causal self-attention and the cross-attention.
+   Each of 9-11 runs 5 steps (3 timed after 2 warm-up) and the valid and
+   test evals, and prints step ms, tokens/s, the MFU by the JAX formula
+   (phase 11 also by executed FLOPs), peak memory (under 79 GiB), exact
+   launches and the step-0 loss against ln V + sigma^2 / 2.
+   ``python3 chip_smoke.py --zoo-only`` runs phases 1-3 and 9-11.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
@@ -86,9 +114,10 @@ The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
 and bound times measured at that path's shape. The row's own ``launches``
-and times are those of slice 6's path, the Qwen2.5-7B-width preemption
-drill (both children; its shapes are phase 6's). K1-K3's blocks also carry the
-measured part of the report above.
+and times are those of slice 7's Llama path (phase 9), the one that runs
+every kernel at the largest shapes. K1-K3's blocks also carry the
+measured part of the report above; T5's block carries its three shapes
+under ``by_shape``.
 """
 
 from __future__ import annotations
@@ -120,6 +149,19 @@ MIXTRAL_YAML = os.path.join(CONFIGS, "mixtral-8x7b.yaml")
 MB, MN, MK, MS, MD = 2, 32, 8, 4096, 128
 MIXTRAL_LAYERS = 2
 MT, MV = MB * MS, 32000  # rows and vocab of the path's logits
+# the slice-7 paths, the rest of the model zoo: Llama-3.1-70B widths, 2 of
+# 80 layers, bsz 1 at seq 8192; BERT-large and T5-3B at full depth
+LLAMA_YAML = os.path.join(CONFIGS, "llama3.1-70b.yaml")
+BERT_YAML = os.path.join(CONFIGS, "bert-large.yaml")
+T5_YAML = os.path.join(CONFIGS, "t5-3b.yaml")
+LB, LN, LK, LS, LD = 1, 64, 8, 8192, 128
+LLAMA_LAYERS = 2
+LT, LV = LB * LS, 128256  # rows and vocab of the path's logits
+BB, BN, BS, BD = 32, 16, 512, 64
+BT, BV = BB * BS, 30592
+T5B, T5N, T5S, T5D = 16, 32, 256, 64  # each stack's length is seq / 2
+T5T, T5V = T5B * T5S, 32128  # the decoder's rows of logits
+ZOO_ITERS = 5  # 2 warm-up steps, 3 timed
 MEM_LIMIT_GIB = 79.0  # the card's 80 GB less what CUDA itself holds
 TRAIN_ITERS = 8
 BIG_REPS = 5  # timing repetitions at the Qwen path's shapes
@@ -321,10 +363,64 @@ def segments_for(batch: int, s: int, dev, kind="packed"):
     return seg.to(dev)
 
 
+def plain_flash(groups: int = 1):
+    """The plain versions of K1, K2 and K3, run over ``groups`` slices of
+    the kv heads (each with its q heads) and joined along the heads: the
+    same function, with the dense [S, Sk] scores of one slice at a time in
+    memory (at the Llama path's S=8192 all 64 heads would take 17 GB a
+    score tensor). Slices would renumber the heads of the dropout mask, so
+    they take no dropout."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.ops import flash_attention as TF
+
+    if groups == 1:
+        return (TF.flash_fwd_plain, TF.flash_bwd_dkdv_plain,
+                TF.flash_bwd_dq_plain)
+
+    def slices(q, k):
+        n, kv = q.shape[1], k.shape[1]
+        g = n // kv
+        step = kv // groups
+        return [(slice(i * g, (i + step) * g), slice(i, i + step))
+                for i in range(0, kv, step)]
+
+    def fwd(q, k, v, segs=None, dseed=None, *, causal=True,
+            dropout_rate=0.0):
+        assert dropout_rate == 0.0
+        outs = [TF.flash_fwd_plain(q[:, qs], k[:, ks], v[:, ks], segs,
+                                   causal=causal)
+                for qs, ks in slices(q, k)]
+        return tuple(torch.cat(x, dim=1) for x in zip(*outs))
+
+    def dkdv(q, k, v, do, lse, delta, segs=None, dseed=None, *,
+             causal=True, dropout_rate=0.0):
+        assert dropout_rate == 0.0
+        outs = [TF.flash_bwd_dkdv_plain(q[:, qs], k[:, ks], v[:, ks],
+                                        do[:, qs], lse[:, qs], delta[:, qs],
+                                        segs, causal=causal)
+                for qs, ks in slices(q, k)]
+        return tuple(torch.cat(x, dim=1) for x in zip(*outs))
+
+    def dq(q, k, v, do, lse, delta, segs=None, dseed=None, *, causal=True,
+           dropout_rate=0.0):
+        assert dropout_rate == 0.0
+        return torch.cat([TF.flash_bwd_dq_plain(
+            q[:, qs], k[:, ks], v[:, ks], do[:, qs], lse[:, qs],
+            delta[:, qs], segs, causal=causal)
+            for qs, ks in slices(q, k)], dim=1)
+
+    return fwd, dkdv, dq
+
+
 def check_case(tag, *, b, n, kv, s, sk, d, dtype, causal, seg, rate,
-               seed=7, layout="hmajor"):
+               seed=7, layout="hmajor", plain_groups=1):
     """K1-K3 against their plain versions on one input set; returns the
-    per-kernel check records and the inputs for timing."""
+    per-kernel check records and the inputs for timing. ``layout="fused"``
+    takes q/k/v as views of one fused qkv projection, ``"cross"`` q as
+    its own projection and k/v as views of a fused kv projection of
+    another length (cross-attention); ``plain_groups`` runs the plain
+    versions over that many slices of the kv heads (:func:`plain_flash`)."""
     import torch
 
     from hetu_galvatron_tpu_torch.ops import flash_attention as TF
@@ -344,6 +440,14 @@ def check_case(tag, *, b, n, kv, s, sk, d, dtype, causal, seg, rate,
         qh = q.view(b, s, n, d).transpose(1, 2)
         kh = k.view(b, s, kv, d).transpose(1, 2)
         vh = v.view(b, s, kv, d).transpose(1, 2)
+        doh = rnd(b, s, n, d).transpose(1, 2)
+    elif layout == "cross":
+        # the decoder's q projection [B, S, N D] and the encoder memory's
+        # fused kv projection [B, Sk, 2 K D]
+        qh = rnd(b, s, n * d).view(b, s, n, d).transpose(1, 2)
+        k, v = torch.chunk(rnd(b, sk, 2 * kv * d), 2, dim=-1)
+        kh = k.view(b, sk, kv, d).transpose(1, 2)
+        vh = v.view(b, sk, kv, d).transpose(1, 2)
         doh = rnd(b, s, n, d).transpose(1, 2)
     elif layout == "unaligned":
         # rows d + 3 elements apart: no 16-byte copies (the kernels'
@@ -365,8 +469,9 @@ def check_case(tag, *, b, n, kv, s, sk, d, dtype, causal, seg, rate,
     args = (qh, kh, vh)
     out = {}
 
+    fwd_p, dkdv_p, dq_p_fn = plain_flash(plain_groups)
     o, lse = TF.flash_attention_hmajor(*args, segs, dseed, **kw)
-    o_p, lse_p = TF.flash_fwd_plain(*args, segs, dseed, **kw)
+    o_p, lse_p = fwd_p(*args, segs, dseed, **kw)
     out["flash_fwd"] = [compare(f"{tag} K1 o", o, o_p, tol),
                         compare(f"{tag} K1 lse", lse, lse_p, TOL_LSE,
                                 absolute=True)]
@@ -374,11 +479,11 @@ def check_case(tag, *, b, n, kv, s, sk, d, dtype, causal, seg, rate,
     delta = (doh.float() * o.float()).sum(dim=-1).contiguous()
     bwd = (qh, kh, vh, doh, lse, delta, segs, dseed)
     dk, dv = TF.flash_bwd_dkdv(*bwd, **kw)
-    dk_p, dv_p = TF.flash_bwd_dkdv_plain(*bwd, **kw)
+    dk_p, dv_p = dkdv_p(*bwd, **kw)
     out["flash_bwd_dkdv"] = [compare(f"{tag} K2 dk", dk, dk_p, tol),
                              compare(f"{tag} K2 dv", dv, dv_p, tol)]
     dq = TF.flash_bwd_dq(*bwd, **kw)
-    dq_p = TF.flash_bwd_dq_plain(*bwd, **kw)
+    dq_p = dq_p_fn(*bwd, **kw)
     out["flash_bwd_dq"] = [compare(f"{tag} K3 dq", dq, dq_p, tol)]
     torch.cuda.synchronize()
     return out, (args, bwd, segs, dseed, kw)
@@ -430,29 +535,35 @@ def check_autograd(tag, *, b, n, s, d, dtype):
             for i, x in enumerate("qkv")]
 
 
-def kept_pairs(b, n, s, segs=None) -> float:
-    """(q, k) pairs a causal kernel must compute: every q's earlier keys,
-    within its own document when ``segs`` [b, s] packs several."""
+def kept_pairs(b, n, s, segs=None, causal=True, sk=None) -> float:
+    """(q, k) pairs a kernel must compute: every q's earlier keys when
+    causal, all ``sk`` keys when not, within its own document when
+    ``segs`` [b, s] packs several."""
     if segs is None:
+        if not causal:
+            return float(b * n * s * (sk or s))
         return b * n * s * (s + 1) / 2
     import torch
 
     total = 0
     for row in segs.cpu():
         _, counts = torch.unique_consecutive(row, return_counts=True)
-        total += int((counts * (counts + 1) // 2).sum())
+        total += int((counts * (counts + 1) // 2 if causal
+                      else counts * counts).sum())
     return float(n * total)
 
 
-def bounds(b, n, kv, s, d, elem, peak_flops, peak_bytes, segs=None):
-    """Least time (ms) for each kernel's work at this causal shape: bytes
-    moved (each input read once, each output written once) over the memory
-    rate, and the tile products over the kept (q, k) pairs (within each
-    packed document when ``segs`` is given) over the bf16 tensor-core
-    rate; the larger of the two and which one it is."""
-    pairs = kept_pairs(b, n, s, segs)
+def bounds(b, n, kv, s, d, elem, peak_flops, peak_bytes, segs=None,
+           causal=True, sk=None):
+    """Least time (ms) for each kernel's work at this shape: bytes moved
+    (each input read once, each output written once) over the memory
+    rate, and the tile products over the kept (q, k) pairs (causal or all
+    ``sk`` keys, within each packed document when ``segs`` is given) over
+    the bf16 tensor-core rate; the larger of the two and which one it
+    is."""
+    pairs = kept_pairs(b, n, s, segs, causal=causal, sk=sk)
     q_bytes = b * n * s * d * elem
-    kv_bytes = b * kv * s * d * elem
+    kv_bytes = b * kv * (sk or s) * d * elem
     row_bytes = b * n * s * 4  # lse / delta, fp32
     work = {
         # K1: q.k and p.v; reads q, k, v; writes o, lse
@@ -478,27 +589,28 @@ def bounds(b, n, kv, s, d, elem, peak_flops, peak_bytes, segs=None):
     return out
 
 
-def time_kernels(case_inputs, reps: int = REPS):
+def time_kernels(case_inputs, reps: int = REPS, plain_groups: int = 1):
     """Kernel, plain and library times (ms) of K1-K3 on one case's
-    inputs."""
+    inputs (the plain versions over ``plain_groups`` slices of the kv
+    heads, as :func:`check_case` ran them)."""
     import torch
     import torch.nn.functional as F
 
     from hetu_galvatron_tpu_torch.ops import flash_attention as TF
 
     args, bwd, segs, dseed, kw = case_inputs
+    fwd_p, dkdv_p, dq_p = plain_flash(plain_groups)
     times = {
         "flash_fwd": (
             time_ms(lambda: TF.flash_attention_hmajor(*args, segs, dseed,
                                                       **kw), reps),
-            time_ms(lambda: TF.flash_fwd_plain(*args, segs, dseed, **kw),
-                    reps)),
+            time_ms(lambda: fwd_p(*args, segs, dseed, **kw), reps)),
         "flash_bwd_dkdv": (
             time_ms(lambda: TF.flash_bwd_dkdv(*bwd, **kw), reps),
-            time_ms(lambda: TF.flash_bwd_dkdv_plain(*bwd, **kw), reps)),
+            time_ms(lambda: dkdv_p(*bwd, **kw), reps)),
         "flash_bwd_dq": (
             time_ms(lambda: TF.flash_bwd_dq(*bwd, **kw), reps),
-            time_ms(lambda: TF.flash_bwd_dq_plain(*bwd, **kw), reps)),
+            time_ms(lambda: dq_p(*bwd, **kw), reps)),
     }
     # the yardstick: PyTorch's own fused attention on the same inputs
     # (timed here only; the port never calls it). GQA k/v are expanded to
@@ -507,12 +619,14 @@ def time_kernels(case_inputs, reps: int = REPS):
     n = args[0].shape[1]
     qh, kh, vh = (t.detach() for t in args)
     kh, vh = (t.repeat_interleave(n // t.shape[1], dim=1) for t in (kh, vh))
-    sdpa = dict(is_causal=True)
+    sdpa = dict(is_causal=kw["causal"])
     if segs is not None:
         s = qh.shape[2]
-        causal = torch.ones(s, s, dtype=torch.bool, device=qh.device).tril()
-        sdpa = dict(attn_mask=causal & (segs[:, None, :, None]
-                                        == segs[:, None, None, :]))
+        mask = segs[:, None, :, None] == segs[:, None, None, :]
+        if kw["causal"]:
+            mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                     device=qh.device).tril()
+        sdpa = dict(attn_mask=mask)
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, **sdpa), reps)
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (qh, kh, vh))
@@ -1141,6 +1255,311 @@ def main_path(peak_flops: float):
 
 
 
+# -- phases 9-11: the rest of the model zoo ----------------------------------
+
+
+def llama_config(prefix: str):
+    """Slice 7's Llama path: llama3.1-70b.yaml at its widths (llama3 rope
+    scaling, GQA 64:8, SwiGLU 28672, vocab 128256, untied head), 2 layers,
+    bsz 1 at seq 8192, bf16, fused CE, remat on every layer, over the
+    packed corpus at ``prefix``; 5 steps, an eval of the valid split after
+    the last and one of the test split."""
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+
+    return load_config(LLAMA_YAML, [
+        f"model.num_hidden_layers={LLAMA_LAYERS}", "model.use_fused_ce=true",
+        "parallel.global_checkpoint=1", "parallel.mixed_precision=bf16",
+        f"parallel.global_train_batch_size={LB}",
+        f"train.train_iters={ZOO_ITERS}",
+        f"train.eval_interval={ZOO_ITERS}", "train.eval_iters=1",
+        "profile.profile=1", f"profile.profile_warmup={PROFILE_WARMUP}",
+        *packed_corpus_overrides(prefix)])
+
+
+def llama_corpus(tmp: str):
+    """The seeded packed corpus of the Llama path in Llama 3's vocabulary
+    (eod 128001): 600 documents of about 3000 tokens, so a row of 8192
+    holds 2-4; returns its prefix, its counts with the samples of each
+    split, and the segment ids [1, 8192] of the path's first training
+    batch that packs several documents."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.data.synthetic import (
+        corpus_tokenizer,
+        write_random_corpus,
+    )
+    from hetu_galvatron_tpu_torch.runtime.dataloader import get_data_iterator
+
+    prefix = os.path.join(tmp, "llama_corpus")
+    corpus = write_random_corpus(prefix, docs=600, mean_len=3000,
+                                 **corpus_tokenizer("llama3.1-70b"))
+    samples = split_samples(prefix, "98,1,1", LS)
+    if min(samples[1:]) < 1:
+        raise SmokeFailure(f"an eval split holds no {LS + 1}-token sample: "
+                           f"{samples}")
+    batches = get_data_iterator(llama_config(prefix), split="train")
+    for step in range(ZOO_ITERS):
+        segs = torch.from_numpy(next(batches)["segment_ids"])
+        docs = [int(r.max()) + 1 for r in segs]
+        if min(docs) > 1:
+            break
+    else:
+        raise SmokeFailure("no training batch of the Llama path packs "
+                           "several documents")
+    log(f"  Llama corpus: {corpus['documents']} documents, "
+        f"{corpus['tokens']} tokens; samples of {LS + 1} tokens per split "
+        f"{samples}; the batch of step {step} packs {docs} documents")
+    return prefix, dict(corpus, samples_per_split=samples,
+                        segments_step=step), segs
+
+
+def zoo_expected_loss(cfg) -> float:
+    """Step-0 loss of a random model on random labels: ln V + sigma^2 / 2,
+    the mean log-sum-exp of V logits of variance sigma^2 = 0.02^2 hidden.
+    Every zoo head has it: the untied head's whead, the tied head's wte
+    and BERT's tied decoder after the MLM transform are all std 0.02 over
+    a unit-rms state (the final RMSNorm, or the transform's LayerNorm)."""
+    return (math.log(cfg.padded_vocab_size)
+            + 0.5 * 0.02 ** 2 * cfg.hidden_size)
+
+
+def zoo_path(label, args, per_step, per_eval, *, tokens, peak_flops,
+             step_flops=None, extra=None):
+    """One zoo model through ``train``: launch counters reset just before
+    and read just after, checked against ``per_step`` x steps +
+    ``per_eval`` x 2 evals (valid after the last step, then test); finite
+    losses, the step-0 loss within 0.5 of :func:`zoo_expected_loss`, peak
+    memory under the limit. Prints step ms (CUDA events over the steps
+    after the warm-up), tokens/s and the MFU by the JAX formula
+    (``model_flops_per_token``), also by ``step_flops`` executed FLOPs when
+    given."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.models.builder import (
+        model_flops_per_token,
+        named_leaves,
+    )
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    cfg = args.model
+    steps, evals = args.train.train_iters, 2
+    want = {k: per_step[k] * steps + per_eval[k] * evals for k in per_step}
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = sum(t.numel() for _, t in named_leaves(out.pop("params")))
+    out.pop("opt_state")
+    losses = out["losses"]
+    log(f"  losses {losses}; validation {out['val_losses']}; test "
+        f"{out['test_loss']}")
+    evals_seen = [v["loss"] for v in out["val_losses"]] + [out["test_loss"]]
+    if (len(losses) != steps or len(evals_seen) != evals
+            or not all(map(math.isfinite, losses + evals_seen))):
+        raise SmokeFailure(f"{label}: losses {losses} / evals {evals_seen} "
+                           "not all finite")
+    expect0 = zoo_expected_loss(cfg)
+    log(f"  step-0 loss {losses[0]:.4f} against ln V + sigma^2/2 = "
+        f"{expect0:.4f} (gate 0.5)")
+    if abs(losses[0] - expect0) > 0.5:
+        raise SmokeFailure(f"{label}: step-0 loss {losses[0]:.4f} is not "
+                           f"within 0.5 of {expect0:.4f}")
+    log(f"  launches {launches} (want {want}: {steps} steps, {evals} "
+        "no-grad evals)")
+    if launches != want:
+        raise SmokeFailure(f"{label}: launches {launches}, want {want}")
+    if peak_gib >= MEM_LIMIT_GIB:
+        raise SmokeFailure(f"{label}: peak memory {peak_gib:.1f} GiB is not "
+                           f"under {MEM_LIMIT_GIB} GiB")
+    step_ms = out["iter_ms"]
+    tok_s = tokens / (step_ms / 1e3)
+    fpt = model_flops_per_token(cfg)
+    mfu = tok_s * fpt / peak_flops
+    summary = dict(
+        model=cfg.model_name, layers=cfg.num_hidden_layers,
+        encoder_layers=cfg.num_encoder_layers, hidden=cfg.hidden_size,
+        ffn=cfg.ffn_dim, heads=f"{cfg.num_attention_heads}:{cfg.kv_heads}",
+        vocab=cfg.padded_vocab_size,
+        global_batch=args.parallel.global_train_batch_size,
+        seq=cfg.seq_length, dtype=args.parallel.mixed_precision,
+        fused_ce=cfg.use_fused_ce, remat=bool(args.parallel.global_checkpoint),
+        params=params, steps=steps, timed_steps=steps - PROFILE_WARMUP,
+        step_ms=step_ms, tokens_per_step=tokens, tokens_per_s=tok_s,
+        model_flops_per_token=fpt, mfu=mfu, peak_tflops=peak_flops / 1e12,
+        wall_s=wall, peak_mem_gb=peak_gib, losses=losses,
+        expected_step0_loss=expect0, val_losses=out["val_losses"],
+        test_loss=out["test_loss"], launches=launches,
+        launches_per_step=dict(per_step),
+        eval_launches={k: per_eval[k] * evals for k in per_eval},
+        **(extra or {}))
+    log(f"  step {step_ms:.2f} ms (mean of steps {PROFILE_WARMUP}.."
+        f"{steps - 1}, CUDA events), {tok_s:.0f} tokens/s, MFU (JAX "
+        f"formula) {100 * mfu:.2f}% of {peak_flops / 1e12:.0f} TFLOP/s "
+        f"({fpt / 1e9:.3f} GFLOP/token), peak memory {peak_gib:.2f} GiB, "
+        f"{params} parameters")
+    if step_flops is not None:
+        mfu_exec = step_flops / (step_ms / 1e3) / peak_flops
+        summary.update(executed_flops_per_step=step_flops,
+                       mfu_executed=mfu_exec)
+        log(f"  MFU by executed FLOPs: {100 * mfu_exec:.2f}% "
+            f"({step_flops / 1e12:.2f} TFLOP a step)")
+    log(f"{label} path: " + json.dumps(summary))
+    return summary
+
+
+def flash_counts(fwd_per_step, bwd_per_step, fwd_per_eval):
+    """Per-step and per-eval launch counts of K1-K5 (one K4 and K5 a
+    step, one K4 an eval)."""
+    return ({"flash_fwd": fwd_per_step, "flash_bwd_dkdv": bwd_per_step,
+             "flash_bwd_dq": bwd_per_step, "ce_fwd": 1, "ce_bwd": 1},
+            {"flash_fwd": fwd_per_eval, "flash_bwd_dkdv": 0,
+             "flash_bwd_dq": 0, "ce_fwd": 1, "ce_bwd": 0})
+
+
+def llama_path(peak_flops: float, prefix: str, corpus):
+    """Phase 9: remat runs K1 twice a layer."""
+    args = llama_config(prefix)
+    L = args.model.num_hidden_layers
+    per_step, per_eval = flash_counts(2 * L, L, L)
+    return zoo_path("llama", args, per_step, per_eval, tokens=LT,
+                    peak_flops=peak_flops, extra={"corpus": corpus})
+
+
+def bert_path(peak_flops: float):
+    """Phase 10: bert-large.yaml at full depth (24 post-norm layers,
+    bidirectional flash, tied MLM head), bsz 32 at seq 512, bf16, fused
+    CE over the masked loss, no remat, random tokens through
+    ``mlm_batches``."""
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+
+    args = load_config(BERT_YAML, [
+        "model.use_fused_ce=true", "parallel.global_checkpoint=0",
+        "parallel.mixed_precision=bf16",
+        f"parallel.global_train_batch_size={BB}",
+        f"train.train_iters={ZOO_ITERS}", f"train.eval_interval={ZOO_ITERS}",
+        "train.eval_iters=1", "profile.profile=1",
+        f"profile.profile_warmup={PROFILE_WARMUP}"])
+    L = args.model.num_hidden_layers
+    per_step, per_eval = flash_counts(L, L, L)
+    return zoo_path("bert", args, per_step, per_eval, tokens=BT,
+                    peak_flops=peak_flops)
+
+
+def t5_step_flops(cfg, b: int, s_enc: int, s_dec: int) -> float:
+    """FLOPs a T5 training step executes under full remat on both stacks:
+    each layer's forward twice (first pass and recompute) and a backward
+    of twice the forward, the head's forward and backward. Encoder layer:
+    qkv and output projections, MLP, q.k and p.v over all S_enc keys;
+    decoder layer: the same with causal self-attention (the triangle),
+    plus cross-attention's q and output projections, its kv projection
+    of the encoder memory and q.k, p.v over the S_enc keys."""
+    h, v = cfg.hidden_size, cfg.padded_vocab_size
+    nq, nkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    te, td = b * s_enc, b * s_dec
+    proj = 2 * h * (nq + 2 * nkv) * hd + 2 * nq * hd * h
+    mlp = 2 * h * cfg.ffn_dim * (3 if cfg.hidden_act in ("swiglu", "geglu")
+                                 else 2)
+    enc = te * (proj + mlp) + 2 * 2 * b * nq * hd * s_enc * s_enc
+    dec = (td * (proj + mlp) + 2 * 2 * b * nq * hd * s_dec * (s_dec + 1) / 2
+           + td * (2 * h * nq * hd + 2 * nq * hd * h)
+           + te * 2 * h * 2 * nkv * hd + 2 * 2 * b * nq * hd * s_dec * s_enc)
+    n_enc = (cfg.num_encoder_layers if cfg.num_encoder_layers is not None
+             else cfg.num_hidden_layers)
+    return (4 * (n_enc * enc + cfg.num_hidden_layers * dec)
+            + 3 * 2 * td * h * v)
+
+
+def t5_path(peak_flops: float):
+    """Phase 11: t5-3b.yaml at full depth (24 + 24 layers), bsz 16 at seq
+    512 split by ``seq2seq_batches`` into 256 + 256, bf16, fused CE, remat
+    on every layer of both stacks through the combined flags. An encoder
+    layer runs K1 twice (remat) and K2, K3 once; a decoder layer twice
+    that (self and cross); an eval K1 once an attention."""
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+
+    args = load_config(T5_YAML, [
+        "model.use_fused_ce=true", "parallel.global_checkpoint=1",
+        "parallel.mixed_precision=bf16",
+        f"parallel.global_train_batch_size={T5B}",
+        f"train.train_iters={ZOO_ITERS}", f"train.eval_interval={ZOO_ITERS}",
+        "train.eval_iters=1", "profile.profile=1",
+        f"profile.profile_warmup={PROFILE_WARMUP}"])
+    cfg = args.model
+    le, ld = cfg.num_encoder_layers, cfg.num_hidden_layers
+    per_step, per_eval = flash_counts(2 * le + 4 * ld, le + 2 * ld,
+                                      le + 2 * ld)
+    return zoo_path("t5", args, per_step, per_eval,
+                    tokens=T5B * cfg.seq_length, peak_flops=peak_flops,
+                    step_flops=t5_step_flops(cfg, T5B, T5S, T5S),
+                    extra={"enc_seq": T5S, "dec_seq": T5S})
+
+
+def check_zoo_kernels(peak_flops, peak_bytes, llama_segs):
+    """Phase 3's cases at the zoo paths' shapes: K1-K3 at BERT's (B=32,
+    N=K=16, S=512, D=64, non-causal), T5's (B=16, N=K=32, S=256, D=64:
+    the encoder's non-causal self-attention, the decoder's causal
+    self-attention and the non-causal cross-attention over the encoder's
+    256 positions) and Llama's (B=1, N=64, K=8, S=8192, D=128, causal, the
+    path's first batch's documents; the plain versions over 8 slices of
+    the kv heads), all bf16; K4/K5 at each path's fp32 logits (T=8192,
+    V=128256; T=16384, V=30592; T=4096, V=32128)."""
+    import torch
+
+    flash = {
+        "bert": check_path_flash(
+            "BERT shape", f"bert B={BB} N=K={BN} S={BS} D={BD} bf16 "
+            "noncausal", (BB, BN, BN, BS, BD), False, peak_flops,
+            peak_bytes, causal=False),
+        "t5_enc": check_path_flash(
+            "T5 encoder shape", f"t5 enc B={T5B} N=K={T5N} S={T5S} D={T5D} "
+            "bf16 noncausal", (T5B, T5N, T5N, T5S, T5D), False, peak_flops,
+            peak_bytes, causal=False),
+        "t5_dec": check_path_flash(
+            "T5 decoder shape", f"t5 dec B={T5B} N=K={T5N} S={T5S} D={T5D} "
+            "bf16 causal", (T5B, T5N, T5N, T5S, T5D), False, peak_flops,
+            peak_bytes, causal=True),
+        "t5_cross": check_path_flash(
+            "T5 cross shape", f"t5 cross B={T5B} N=K={T5N} S=Sk={T5S} "
+            f"D={T5D} bf16 noncausal", (T5B, T5N, T5N, T5S, T5D), False,
+            peak_flops, peak_bytes, causal=False, layout="cross", sk=T5S),
+        "llama": check_path_flash(
+            "Llama shape", f"llama B={LB} N={LN} K={LK} S={LS} D={LD} bf16 "
+            "packed", (LB, LN, LK, LS, LD), llama_segs, peak_flops,
+            peak_bytes, plain_groups=LK),
+    }
+    torch.cuda.empty_cache()
+    ce_checks = {"ce_fwd": [], "ce_bwd": []}
+    ce_timing = {}
+    peak_fp32 = 67e12  # H100 SXM fp32 outside the tensor cores
+    for name, t, v in (("llama", LT, LV), ("bert", BT, BV),
+                       ("t5", T5T, T5V)):
+        tag = f"{name} T={t} V={v} fp32"
+        res, inputs = check_ce_case(tag, t, v, torch.float32,
+                                    seed=len(tag))
+        for k, recs in res.items():
+            ce_checks[k] += [dict(r, case=tag) for r in recs]
+        times, lib = time_ce(inputs)
+        del inputs
+        torch.cuda.empty_cache()
+        bnd = ce_bounds(t, v, 4, peak_bytes, peak_fp32)
+        log_times(tag, times, lib, bnd)
+        ce_timing[name] = {k: dict(ms=times[k][0], plain_ms=times[k][1],
+                                   library_ms=lib[k],
+                                   bound_ms=bnd[k]["bound_ms"],
+                                   bound_by=bnd[k]["bound_by"],
+                                   flops=bnd[k]["flops"],
+                                   bytes=bnd[k]["bytes"], shape=tag)
+                           for k in times}
+    return {"flash": flash, "ce_checks": ce_checks, "ce_timing": ce_timing}
+
+
 # -- phase 8: checkpoint, resume and the fault lifecycle ---------------------
 
 DRILL_STEPS = 6
@@ -1429,7 +1848,8 @@ def log_times(tag, times, lib, bnd):
             f"({bnd[k]['bound_by']})")
 
 
-def flash_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
+def flash_report(tag, times, lib, bnd, *, b, s, dtype, segs=None,
+                 causal=True, sk=None):
     """K1-K3 at one shape: TFLOP/s over the kept pairs, share of the bound,
     K1 against the library forward and K2 + K3 against the library
     backward timed beside them. The log also gives the tiles that the rule
@@ -1439,16 +1859,18 @@ def flash_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
     from hetu_galvatron_tpu_torch.ops import flash_attention as TF
 
     out = {}
+    sk = sk or s
     for k, (tq, tk) in TF.tile_sizes(dtype).items():
         ms = times[k][0]
-        done = TF.computed_tiles(s, s, tq, tk, causal=True, segments=segs)
-        tri = TF.computed_tiles(s, s, tq, tk, causal=True)
+        done = TF.computed_tiles(s, sk, tq, tk, causal=causal, segments=segs)
+        tri = TF.computed_tiles(s, sk, tq, tk, causal=causal)
         out[k] = dict(tflops=bnd[k]["flops"] / (ms * 1e-3) / 1e12,
                       share_of_bound=bnd[k]["bound_ms"] / ms)
         log(f"  {tag}: {k:<16} {out[k]['tflops']:.1f} TFLOP/s over the kept "
             f"pairs, {100 * out[k]['share_of_bound']:.1f}% of the bound; "
             f"the tile rule computes {int(done.sum()) * (b // done.shape[0])}"
-            f" of {int(tri.sum()) * b} causal {tq}x{tk} tiles")
+            f" of {int(tri.sum()) * b} {'causal' if causal else 'all'} "
+            f"{tq}x{tk} tiles")
     fwd, fwd_lib = times["flash_fwd"][0], lib["flash_fwd"]
     log(f"  {tag}: K1 {fwd:.3f} ms against the library forward "
         f"{fwd_lib:.3f} ms: {'faster' if fwd < fwd_lib else 'slower'} "
@@ -1464,23 +1886,31 @@ def flash_report(tag, times, lib, bnd, *, b, s, dtype, segs=None):
 
 
 def check_path_flash(label, tag, shape, segs, peak_flops, peak_bytes,
-                     fp16_ms=None):
+                     fp16_ms=None, *, causal=True, layout="fused", sk=None,
+                     plain_groups=1):
     """K1-K3 at a path's attention shape ``(b, n, kv, s, d)`` (bf16,
-    causal, packed ``segs``, True for three documents a row, q/k/v as views
-    of the fused qkv projection): checked against the plain versions and
+    causal unless told otherwise, packed ``segs``, True for three
+    documents a row, q/k/v as views of the fused qkv projection or, with
+    ``layout="cross"``, of the cross-attention's q and fused kv
+    projections over ``sk`` keys): checked against the plain versions and
     timed beside the fp16 times ``fp16_ms`` when given; the inputs are
     released on return."""
     import torch
 
     b, n, kv, s, d = shape
-    res, inputs = check_case(tag, b=b, n=n, kv=kv, s=s, sk=s, d=d,
-                             dtype=torch.bfloat16, causal=True, seg=segs,
-                             rate=0.0, layout="fused")
-    times, lib = time_kernels(inputs, reps=BIG_REPS)
-    bnd = bounds(b, n, kv, s, d, 2, peak_flops, peak_bytes, segs=inputs[2])
+    sk = sk or s
+    res, inputs = check_case(tag, b=b, n=n, kv=kv, s=s, sk=sk, d=d,
+                             dtype=torch.bfloat16, causal=causal, seg=segs,
+                             rate=0.0, layout=layout,
+                             plain_groups=plain_groups)
+    times, lib = time_kernels(inputs, reps=BIG_REPS,
+                              plain_groups=plain_groups)
+    bnd = bounds(b, n, kv, s, d, 2, peak_flops, peak_bytes, segs=inputs[2],
+                 causal=causal, sk=sk)
     log_times(label, times, lib, bnd)
     report = flash_report(label, times, lib, bnd, b=b, s=s,
-                          dtype=torch.bfloat16, segs=inputs[2])
+                          dtype=torch.bfloat16, segs=inputs[2],
+                          causal=causal, sk=sk)
     if fp16_ms is not None:
         log(f"  {label}: K1 bf16 {times['flash_fwd'][0]:.3f} ms (P as hi + "
             f"lo) against fp16 {fp16_ms['flash_fwd']:.3f} ms (one "
@@ -1594,6 +2024,7 @@ def main() -> int:
             "bytes")
     if any(st or ld for _, _, st, ld in ptxas):
         raise SmokeFailure("a kernel spills registers (ptxas above)")
+    zoo_only = sys.argv[1:] == ["--zoo-only"]
     if sys.argv[1:] == ["--lifecycle-only"]:
         # phase 8 alone, over its own copy of phase 6's corpus
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1718,6 +2149,25 @@ def main() -> int:
     for name_k, recs in ce["checks"].items():
         checks[name_k] += recs
     torch.cuda.empty_cache()
+    llama_prefix, llama_stats, llama_segs = llama_corpus(tmp)
+    zoo_k = check_zoo_kernels(peak_flops, peak_bytes, llama_segs)
+    for res in zoo_k["flash"].values():
+        for name_k, recs in res["checks"].items():
+            checks[name_k] += recs
+    for name_k, recs in zoo_k["ce_checks"].items():
+        checks[name_k] += recs
+    torch.cuda.empty_cache()
+    if zoo_only:
+        zoo = zoo_paths(peak_flops, llama_prefix, llama_stats)
+        tmpdir.cleanup()
+        rows = kernel_rows(checks, zoo_k, zoo)
+        log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+        log(json.dumps({"kernels": rows}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     phase("phase 4: reference runs (flash against the plain core; fused CE "
           "+ remat against the plain loss; MoE: both, and dropless against "
@@ -1745,12 +2195,12 @@ def main() -> int:
           "drill, under cli.supervise)")
     qwen_drill_run, gpt2_drill_run = lifecycle_path(
         smi, os.path.join(tmp, "qwen_corpus"))
+    torch.cuda.empty_cache()
+    zoo = zoo_paths(peak_flops, llama_prefix, llama_stats)
     tmpdir.cleanup()
 
     # one block per path that runs the kernel: its launches beside the
-    # times measured at that path's shape; the row's own keys are those of
-    # this slice's path (the Qwen2.5-7B-width preemption drill, whose
-    # shapes are phase 6's)
+    # times measured at that path's shape
     qwen_name = f"qwen2.5-7b-{QWEN_LAYERS}-layers"
     mixtral_name = f"mixtral-8x7b-{MIXTRAL_LAYERS}-layers"
     drill_name = f"qwen2.5-7b-{QWEN_DRILL_LAYERS}-layers-preemption-drill"
@@ -1759,43 +2209,28 @@ def main() -> int:
         launches=qwen_drill_run["launches_total"],
         launches_per_step=qwen_drill_run["launches_per_step"],
         eval_launches=qwen_drill_run["eval_launches"])
-
-    def max_err(k, case, kinds=("elementwise", "abs", "exact")):
-        return max(c["max_abs_err"] for c in checks[k]
-                   if c["case"] == case and c["tol_kind"] in kinds)
-
-    def block(k, run, timing, err, shape):
-        return dict(launches=run["launches"][k],
-                    launches_per_step=run["launches_per_step"][k],
-                    eval_launches=run["eval_launches"][k],
-                    max_abs_err=err, ms=timing["ms"],
-                    plain_ms=timing["plain_ms"],
-                    library_ms=timing["library_ms"],
-                    bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-                    flops=timing["flops"], bytes=timing["bytes"], shape=shape)
-
-    rows = []
-    for k, meta in KERNELS.items():
+    earlier = {}
+    for k in KERNELS:
         paths = {}
         if k in FLASH:
             gpt2_timing = dict(ms=times[k][0], plain_ms=times[k][1],
                                library_ms=lib[k], **bnd[k])
-            paths["gpt2-small"] = block(
+            paths["gpt2-small"] = path_block(
                 k, gpt2, gpt2_timing,
-                max_err(k, "slice bf16", ("elementwise",)),
+                max_err(checks, k, "slice bf16", ("elementwise",)),
                 f"B={B} N=K={N} S={S} D={D} bf16 causal")
-            paths[gpt2_drill_name] = block(
+            paths[gpt2_drill_name] = path_block(
                 k, gpt2_drill_run, gpt2_timing,
-                max_err(k, "slice bf16", ("elementwise",)),
+                max_err(checks, k, "slice bf16", ("elementwise",)),
                 f"B={B} N=K={N} S={S} D={D} bf16 causal")
             for path, run, res in ((qwen_name, qwen, qwen_flash),
                                    (mixtral_name, mixtral, mixtral_flash),
                                    (drill_name, qwen_drill_launches,
                                     qwen_flash)):
                 timing = res["timing"][k]
-                paths[path] = block(
+                paths[path] = path_block(
                     k, run, timing,
-                    max_err(k, timing["shape"], ("elementwise",)),
+                    max_err(checks, k, timing["shape"], ("elementwise",)),
                     timing["shape"])
             for path, rep in (("gpt2-small", gpt2_rep),
                               (qwen_name, qwen_flash["report"]),
@@ -1806,34 +2241,25 @@ def main() -> int:
                         pair_ms=rep["pair_ms"],
                         pair_beats_library=rep["pair_beats_library"])
             paths[qwen_name]["fp16_ms"] = fp16_ms[k]
-            tol_rule = ("every element: |got - want| <= tol * (rms(want) + "
-                        "|want|); 1e-4 in fp32, 1e-3 absolute on lse")
-            tol, extra = TOL_16, {}
         else:
-            paths[qwen_name] = block(
+            paths[qwen_name] = path_block(
                 k, qwen, ce["timing"]["fp32"][k],
-                max_err(k, "qwen fp32"),
+                max_err(checks, k, "qwen fp32"),
                 f"T={QT} V={QV} fp32 logits (the path's dtype)")
-            paths[mixtral_name] = block(
+            paths[mixtral_name] = path_block(
                 k, mixtral, ce["timing"]["mixtral fp32"][k],
-                max_err(k, "mixtral fp32"),
+                max_err(checks, k, "mixtral fp32"),
                 f"T={MT} V={MV} fp32 logits (the path's dtype)")
-            paths[drill_name] = block(
+            paths[drill_name] = path_block(
                 k, qwen_drill_launches, ce["timing"]["fp32"][k],
-                max_err(k, "qwen fp32"),
+                max_err(checks, k, "qwen fp32"),
                 f"T={QT} V={QV} fp32 logits (the path's dtype)")
-            tol_rule = ("gold bit-equal, lse within 1e-4 absolute, dlogits "
-                        "every element within tol * (rms(want) + |want|): "
-                        "1e-4 in fp32, 2e-2 in bf16/fp16")
-            tol, extra = TOL_FP32, {"bf16": ce["timing"]["bf16"][k]}
-        row = dict(name=k, route=meta["route"], source=meta["source"],
-                   replaces=meta["replaces"],
-                   library_call=meta["library_call"], **paths[drill_name],
-                   tol=tol, tol_rule=tol_rule, paths=paths, **extra)
-        row["checks"] = checks[k]
-        rows.append(row)
+        earlier[k] = paths
+    rows = kernel_rows(checks, zoo_k, zoo, earlier)
     rows[0]["autograd_checks"] = auto
     rows[3]["autograd_checks"] = ce["zloss"]
+    rows[3]["bf16"] = ce["timing"]["bf16"]["ce_fwd"]
+    rows[4]["bf16"] = ce["timing"]["bf16"]["ce_bwd"]
     log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(smi)
@@ -1841,6 +2267,101 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def max_err(checks, k, case, kinds=("elementwise", "abs", "exact")):
+    """The largest error of kernel ``k``'s checks on one case."""
+    return max(c["max_abs_err"] for c in checks[k]
+               if c["case"] == case and c["tol_kind"] in kinds)
+
+
+def path_block(k, run, timing, err, shape):
+    """Kernel ``k``'s block for one path: the path's launches (in the run,
+    per step, in its evals) beside the times measured at its shape."""
+    return dict(launches=run["launches"][k],
+                launches_per_step=run["launches_per_step"][k],
+                eval_launches=run["eval_launches"][k],
+                max_abs_err=err, ms=timing["ms"],
+                plain_ms=timing["plain_ms"],
+                library_ms=timing["library_ms"],
+                bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+                flops=timing["flops"], bytes=timing["bytes"], shape=shape)
+
+
+def zoo_paths(peak_flops, llama_prefix, llama_stats):
+    """Phases 9-11, each with the launch counters reset before it."""
+    import torch
+
+    phase("phase 9: main path of slice 7 (train_dist, Llama-3.1-70B "
+          f"widths, {LLAMA_LAYERS} layers, seq {LS}, llama3 rope scaling)")
+    llama = llama_path(peak_flops, llama_prefix, llama_stats)
+    torch.cuda.empty_cache()
+    phase("phase 10: main path of slice 7 (train_dist, BERT-large, 24 "
+          "layers, MLM)")
+    bert = bert_path(peak_flops)
+    torch.cuda.empty_cache()
+    phase("phase 11: main path of slice 7 (train_dist, T5-3B, 24 + 24 "
+          "layers)")
+    t5 = t5_path(peak_flops)
+    torch.cuda.empty_cache()
+    return {"llama": llama, "bert": bert, "t5": t5}
+
+
+LLAMA_PATH = f"llama3.1-70b-{LLAMA_LAYERS}-layers"
+
+
+def kernel_rows(checks, zoo_k, zoo, earlier=None):
+    """The kernels JSON line's rows: per kernel, one block per path that
+    ran it (``earlier``: the blocks of phases 5-8, absent under
+    ``--zoo-only``), the zoo paths' blocks at their shapes (T5's K1-K3
+    block at the decoder's causal self-attention, with all three of its
+    shapes under ``by_shape``); the row's own keys are those of this
+    slice's Llama path, the only one that runs every kernel at the
+    largest shapes."""
+    flash = zoo_k["flash"]
+    rows = []
+    for k, meta in KERNELS.items():
+        paths = dict((earlier or {}).get(k, {}))
+        if k in FLASH:
+            def fblock(run, key):
+                timing = flash[key]["timing"][k]
+                out = path_block(k, run, timing, max_err(
+                    checks, k, timing["shape"], ("elementwise",)),
+                    timing["shape"])
+                out.update(flash[key]["report"][k])
+                if k in BWD:
+                    rep = flash[key]["report"]
+                    out.update(pair_ms=rep["pair_ms"],
+                               pair_beats_library=rep["pair_beats_library"])
+                return out
+
+            paths[LLAMA_PATH] = fblock(zoo["llama"], "llama")
+            paths["bert-large"] = fblock(zoo["bert"], "bert")
+            paths["t5-3b"] = fblock(zoo["t5"], "t5_dec")
+            paths["t5-3b"]["by_shape"] = {
+                key: fblock(zoo["t5"], key)
+                for key in ("t5_enc", "t5_dec", "t5_cross")}
+            tol_rule = ("every element: |got - want| <= tol * (rms(want) + "
+                        "|want|); 1e-4 in fp32, 1e-3 absolute on lse")
+            tol = TOL_16
+        else:
+            for path, key in ((LLAMA_PATH, "llama"), ("bert-large", "bert"),
+                              ("t5-3b", "t5")):
+                timing = zoo_k["ce_timing"][key][k]
+                paths[path] = path_block(k, zoo[key], timing,
+                                         max_err(checks, k, timing["shape"]),
+                                         timing["shape"])
+            tol_rule = ("gold bit-equal, lse within 1e-4 absolute, dlogits "
+                        "every element within tol * (rms(want) + |want|): "
+                        "1e-4 in fp32, 2e-2 in bf16/fp16")
+            tol = TOL_FP32
+        row = dict(name=k, route=meta["route"], source=meta["source"],
+                   replaces=meta["replaces"],
+                   library_call=meta["library_call"], **paths[LLAMA_PATH],
+                   tol=tol, tol_rule=tol_rule, paths=paths)
+        row["checks"] = checks[k]
+        rows.append(row)
+    return rows
 
 
 if __name__ == "__main__":

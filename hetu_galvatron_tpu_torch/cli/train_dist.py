@@ -11,8 +11,12 @@ loss through ``fused_ce_nll`` (K4/K5) and ``parallel.global_checkpoint``
 remats every layer under ``model.remat_policy``. A config with
 ``model.num_experts`` (Mixtral) runs its MoE layers and returns their
 router statistics in each step's ``metrics["moe"]``, which the iteration
-log prints per layer. The run goes to the GPU unless ``device=cpu`` is
-given.
+log prints per layer. BERT trains on masked-LM batches with bidirectional
+flash; T5 trains its encoder-decoder pair on the seq2seq split, flash as
+the core of the encoder's self-attention, the decoder's causal
+self-attention and the cross-attention, and the plan's combined-stack
+remat flags split per stack. The run goes to the GPU unless
+``device=cpu`` is given.
 
 The checkpoint and fault lifecycle (JAX ``cli/train_dist.py:391-760`` and
 ``main`` :1039-1060):
@@ -105,15 +109,21 @@ def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
     return out
 
 
-def attention_overrides(cfg, device) -> Dict[int, Dict[str, Any]]:
-    """Per-layer attention core: the flash kernels on a CUDA device when
-    ``use_flash_attn``, else the plain core."""
+def attention_overrides(cfg, device, n_layers: Optional[int] = None,
+                        cross: bool = False) -> Dict[int, Dict[str, Any]]:
+    """Per-layer attention core of ``n_layers`` layers (the decoder stack
+    by default): the flash kernels on a CUDA device when
+    ``use_flash_attn``, else the plain core. ``cross`` (t5 decoder layers)
+    also sets the cross-attention's core."""
     if not (cfg.use_flash_attn and device.type == "cuda"):
         return {}
     from hetu_galvatron_tpu_torch.ops.flash_attention import flash_sdpa
 
-    return {i: {"sdpa_fn": flash_sdpa}
-            for i in range(cfg.num_hidden_layers)}
+    kw = {"sdpa_fn": flash_sdpa}
+    if cross:
+        kw["cross_sdpa_fn"] = flash_sdpa
+    n = cfg.num_hidden_layers if n_layers is None else n_layers
+    return {i: dict(kw) for i in range(n)}
 
 
 def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
@@ -174,9 +184,11 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         args, global_batch_size=hpc.global_bsz)
     data_iter = RerunDataIterator(base_iter)
     compute_dtype = compute_dtype_of(args.parallel.mixed_precision)
-    overrides = attention_overrides(cfg, device)
+    t5 = cfg.model_type == "t5"
+    overrides = attention_overrides(cfg, device, cross=t5)
     if overrides:
-        state.log("attention: flash kernels (CUDA K1-K3) on every layer")
+        state.log("attention: flash kernels (CUDA K1-K3) on every layer"
+                  + (" (encoder, decoder and cross-attention)" if t5 else ""))
     if cfg.use_fused_ce:
         state.log("fused cross-entropy: " + (
             "CUDA K4/K5" if device.type == "cuda"
@@ -187,7 +199,13 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
                   f"{len(hpc.checkpoint_flags)} layers")
     moe = bool(cfg.num_experts)
     loss_kw = dict(compute_dtype=compute_dtype,
-                   remat_flags=hpc.checkpoint_flags, layer_overrides=overrides)
+                   remat_flags=hpc.dec_flags, layer_overrides=overrides)
+    if t5:
+        # the plan's combined stack, split: its first layers are the
+        # encoder's
+        loss_kw.update(enc_remat_flags=hpc.enc_flags,
+                       enc_layer_overrides=attention_overrides(
+                           cfg, device, n_layers=hpc.num_encoder_layers))
     loss_fn = make_loss_fn(cfg, **loss_kw)
     forward_backward = make_forward_backward(
         make_loss_fn(cfg, with_moe_stats=moe, **loss_kw), chunks=hpc.chunks,

@@ -21,7 +21,8 @@ class ModelArgs:
     model_name: str = "gpt2-small"
     model_type: str = "gpt"
     hidden_size: int = 768
-    num_hidden_layers: int = 12
+    num_hidden_layers: int = 12  # t5: the decoder stack
+    num_encoder_layers: Optional[int] = None  # t5: None = the decoder's
     num_attention_heads: int = 12
     num_key_value_heads: Optional[int] = None
     ffn_hidden_size: Optional[int] = None
@@ -99,6 +100,8 @@ class ModelArgs:
 
     @property
     def post_norm(self) -> bool:
+        """Residual-then-norm blocks: ``norm_position``, else "post" for
+        bert and "pre" for every other family."""
         pos = self.norm_position or (
             "post" if self.model_type == "bert" else "pre")
         return pos == "post"
@@ -295,8 +298,7 @@ class SupervisorArgs:
 # keys the JAX schema defines that this package does not read (yet); a
 # config naming them loads, the values are dropped
 JAX_ONLY_KEYS: Dict[str, frozenset] = {
-    "model": frozenset({
-        "num_encoder_layers", "untie_streams"}),
+    "model": frozenset({"untie_streams"}),
     "parallel": frozenset({
         "global_tp_consec", "cp_zigzag", "global_etp_deg", "default_dp_type",
         "vocab_tp", "vocab_sp", "vocab_cp", "embed_sdp", "pipeline_type",

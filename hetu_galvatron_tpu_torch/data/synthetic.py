@@ -26,14 +26,18 @@ TOKENIZERS: Dict[str, Dict[str, Any]] = {
     # Mistral / Mixtral: 0 <unk>, 1 <s>, 2 </s>
     "mistral": dict(vocab=32000, eod=2, tokenizer_vocab=32000,
                     ids=(3, 32000)),
+    # Llama 3: 128000 ordinary ids, then 256 special tokens;
+    # <|end_of_text|> is 128001
+    "llama3": dict(vocab=128256, eod=128001, tokenizer_vocab=128256,
+                   ids=(0, 128000)),
 }
 
 
 def corpus_tokenizer(model_name: str) -> Dict[str, Any]:
     """The ``TOKENIZERS`` entry of a config's ``model_name`` (Mixtral's is
-    Mistral's); raises for a model without one."""
+    Mistral's, Llama 3.1's Llama 3's); raises for a model without one."""
     for prefix, family in (("qwen2.5", "qwen2.5"), ("mistral", "mistral"),
-                           ("mixtral", "mistral")):
+                           ("mixtral", "mistral"), ("llama3", "llama3")):
         if model_name.startswith(prefix):
             return dict(TOKENIZERS[family])
     raise ValueError(f"no tokenizer is known for model {model_name!r} "

@@ -1,4 +1,4 @@
-"""Causal-LM assembly: config -> parameter tree -> forward / loss.
+"""Model assembly: config -> parameter tree -> forward / loss.
 
 Counterpart of ``hetu_galvatron_tpu/models/builder.py``. The parameter tree
 has the JAX package's structure (``embed``, ``layers[i]``, ``prenorm``,
@@ -6,12 +6,13 @@ has the JAX package's structure (``embed``, ``layers[i]``, ``prenorm``,
 keyword arguments (the ``sdpa_fn`` seam) as there. With ``num_experts``,
 every ``moe_layer_freq``-th layer holds ``moe`` (``models/moe.py``) in place
 of ``mlp``; its aux loss joins the loss and its router statistics come back
-per layer.
+per layer. Post-norm stacks (BERT) have an empty ``prenorm``: the MLM
+head's norm is the last. ``model_type == "t5"`` builds and trains the
+encoder-decoder pair of ``models/encdec.py``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -27,11 +28,17 @@ from hetu_galvatron_tpu_torch.models.moe import (
 Params = Dict[str, Any]
 
 
-def _norm_params(cfg: ModelArgs, device) -> Params:
-    p = {"scale": torch.ones(cfg.hidden_size, device=device)}
-    if cfg.normalization == "layernorm":
-        p["bias"] = torch.zeros(cfg.hidden_size, device=device)
-    return p
+def init_decoder_layer(gen: torch.Generator, cfg: ModelArgs, device,
+                       moe: bool = False) -> Params:
+    """``ln1``, ``attn``, ``ln2`` and ``mlp`` (``moe`` for an MoE layer)."""
+    layer = {"ln1": M.init_norm(cfg, device),
+             "attn": M.init_attention(gen, cfg, device),
+             "ln2": M.init_norm(cfg, device)}
+    if moe:
+        layer["moe"] = init_moe_mlp(gen, cfg, device)
+    else:
+        layer["mlp"] = M.init_mlp(gen, cfg, device)
+    return layer
 
 
 def init_causal_lm(cfg: ModelArgs, seed: int = 1234,
@@ -40,38 +47,23 @@ def init_causal_lm(cfg: ModelArgs, seed: int = 1234,
     residual projections ``wo`` and ``wout`` (the experts' too) scaled by
     1/sqrt(2L), zero biases, unit norm scales. Numbers differ from the JAX
     init (another generator); carry JAX weights over with
-    ``runtime.checkpoint``."""
+    ``runtime.checkpoint``. t5 builds ``encdec.init_encdec``."""
     M.check_model_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    h, hd, L = cfg.hidden_size, cfg.head_dim, cfg.num_hidden_layers
-    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
-    resid_std = 0.02 / math.sqrt(2 * L)
-    embed = {"wte": M.normal(gen, (cfg.padded_vocab_size, h), 0.02, device)}
-    if cfg.position_embedding_type == "learned":
-        embed["wpe"] = M.normal(gen, (cfg.max_position_embeddings, h),
-                                0.02, device)
-    layers = []
-    for i in range(L):
-        attn = {"wqkv": M.normal(gen, (h, (nq + 2 * nkv) * hd), 0.02,
-                                 device),
-                "wo": M.normal(gen, (nq * hd, h), resid_std, device)}
-        if cfg.add_qkv_bias:
-            attn["bqkv"] = torch.zeros((nq + 2 * nkv) * hd, device=device)
-        if cfg.add_bias_linear:
-            attn["bo"] = torch.zeros(h, device=device)
-        layer = {"ln1": _norm_params(cfg, device), "attn": attn,
-                 "ln2": _norm_params(cfg, device)}
-        if is_moe_layer(cfg, i):
-            layer["moe"] = init_moe_mlp(gen, cfg, device)
-        else:
-            layer["mlp"] = M.init_mlp(gen, cfg, device)
-        layers.append(layer)
-    head = ({} if cfg.tie_word_embeddings else
-            {"whead": M.normal(gen, (h, cfg.padded_vocab_size), 0.02,
-                               device)})
-    params = {"embed": embed, "layers": layers,
-              "prenorm": _norm_params(cfg, device), "head": head}
+    if cfg.model_type == "t5":
+        from hetu_galvatron_tpu_torch.models.encdec import init_encdec
+
+        params = init_encdec(gen, cfg, device)
+    else:
+        embed = M.init_embedding(gen, cfg, device)
+        layers = [init_decoder_layer(gen, cfg, device,
+                                     moe=is_moe_layer(cfg, i))
+                  for i in range(cfg.num_hidden_layers)]
+        # post-norm blocks end normalized; the MLM head's norm is the last
+        params = {"embed": embed, "layers": layers,
+                  "prenorm": {} if cfg.post_norm else M.init_norm(cfg, device),
+                  "head": M.init_lm_head(gen, cfg, device)}
     for _, t in named_leaves(params):
         t.requires_grad_(True)
     return params
@@ -90,6 +82,34 @@ def named_leaves(params: Params, prefix: str = ""
                                 else str(key))
 
 
+def rope_tables(cfg: ModelArgs, tokens: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                mrope_position_ids: Optional[torch.Tensor] = None):
+    """The (cos, sin) rope tables of a [B, S] token batch, None without
+    rope: [S, D/2] in order, [B, S, D/2] gathered per token for packed
+    positions, and the multimodal tables with ``cfg.mrope_section``."""
+    if cfg.position_embedding_type != "rope":
+        return None
+    S = tokens.shape[1]
+    if cfg.mrope_section:
+        mpos = mrope_position_ids
+        if mpos is None:
+            base = (position_ids if position_ids is not None else
+                    torch.arange(S, device=tokens.device).expand(
+                        tokens.shape))
+            mpos = base[None].expand((len(cfg.mrope_section),)
+                                     + tuple(base.shape))
+        return M.mrope_cos_sin(mpos, cfg.head_dim, cfg.rope_theta,
+                               sections=cfg.mrope_section,
+                               scaling=cfg.rope_scaling)
+    cos, sin = M.rope_cos_sin(S, cfg.head_dim, cfg.rope_theta,
+                              device=tokens.device, scaling=cfg.rope_scaling)
+    if position_ids is not None:
+        # packed samples: gather per-token rows -> [B, S, D/2]
+        cos, sin = cos[position_ids], sin[position_ids]
+    return cos, sin
+
+
 def forward_causal_lm(
     params: Params,
     tokens: torch.Tensor,
@@ -101,6 +121,7 @@ def forward_causal_lm(
     dropout_rng: Optional[torch.Generator] = None,
     position_ids: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    mrope_position_ids: Optional[torch.Tensor] = None,
     with_aux: bool = False,
 ):
     """tokens [B, S] -> fp32 logits [B, S, V]; with ``with_aux``, (logits,
@@ -110,18 +131,12 @@ def forward_causal_lm(
     ``position_ids`` / ``segment_ids`` [B, S] are the packed-document fields
     (reset_position_ids / reset_attention_mask): rope rows (or ``wpe`` rows)
     are gathered per token and every layer masks attention across
-    documents. ``remat_flags[i]`` checkpoints layer i under
-    ``cfg.remat_policy`` (:func:`modules.remat`)."""
+    documents. With ``cfg.mrope_section``, ``mrope_position_ids`` [3, B, S]
+    drive the multimodal rope; without them the 1-D positions stand for all
+    three rows, which is plain rope. ``remat_flags[i]`` checkpoints layer i
+    under ``cfg.remat_policy`` (:func:`modules.remat`)."""
     M.check_model_supported(cfg)
-    S = tokens.shape[1]
-    rope = None
-    if cfg.position_embedding_type == "rope":
-        cos, sin = M.rope_cos_sin(S, cfg.head_dim, cfg.rope_theta,
-                                  device=tokens.device)
-        if position_ids is not None:
-            # packed samples: gather per-token rows -> [B, S, D/2]
-            cos, sin = cos[position_ids], sin[position_ids]
-        rope = (cos, sin)
+    rope = rope_tables(cfg, tokens, position_ids, mrope_position_ids)
     n = len(params["layers"])
     # one child stream each for the embedding and every layer; a layer
     # gets its seed and builds its generator inside itself, so a remat
@@ -172,21 +187,36 @@ def causal_lm_loss(
     compute_dtype: torch.dtype = torch.bfloat16,
     remat_flags: Optional[Sequence[bool]] = None,
     layer_overrides: Optional[Dict[int, Dict[str, Any]]] = None,
+    enc_remat_flags: Optional[Sequence[bool]] = None,
+    enc_layer_overrides: Optional[Dict[int, Dict[str, Any]]] = None,
     fused_ce: Optional[bool] = None,
     with_moe_stats: bool = False,
 ):
     """batch: tokens [B,S], labels [B,S], optional loss_mask, position_ids
-    and segment_ids [B,S] and dropout_rng -> scalar loss, CE plus the MoE
-    layers' aux loss (with ``with_moe_stats``: (loss, router stats by
-    ``layer{i}``)). ``fused_ce`` overrides ``cfg.use_fused_ce`` (K4/K5
-    through ``fused_ce_nll``)."""
+    and segment_ids [B,S], mrope_position_ids [3,B,S] and dropout_rng ->
+    scalar loss, CE plus the MoE layers' aux loss (with ``with_moe_stats``:
+    (loss, router stats by ``layer{i}``)). ``fused_ce`` overrides
+    ``cfg.use_fused_ce`` (K4/K5 through ``fused_ce_nll``). t5 batches
+    (``enc_tokens`` too) go to ``encdec.encdec_loss``; the ``enc_*`` knobs
+    index its encoder stack."""
     fused = cfg.use_fused_ce if fused_ce is None else fused_ce
+    if cfg.model_type == "t5":
+        from hetu_galvatron_tpu_torch.models.encdec import encdec_loss
+
+        loss = encdec_loss(params, batch, cfg, compute_dtype=compute_dtype,
+                           remat_flags=remat_flags,
+                           enc_remat_flags=enc_remat_flags,
+                           layer_overrides=layer_overrides,
+                           enc_layer_overrides=enc_layer_overrides,
+                           fused_ce=fused)
+        return (loss, {}) if with_moe_stats else loss
     logits, aux, moe_stats = forward_causal_lm(
         params, batch["tokens"], cfg, compute_dtype=compute_dtype,
         remat_flags=remat_flags, layer_overrides=layer_overrides,
         dropout_rng=batch.get("dropout_rng"),
         position_ids=batch.get("position_ids"),
-        segment_ids=batch.get("segment_ids"), with_aux=True)
+        segment_ids=batch.get("segment_ids"),
+        mrope_position_ids=batch.get("mrope_position_ids"), with_aux=True)
     loss = M.cross_entropy_loss(logits, batch["labels"],
                                 batch.get("loss_mask"), fused=fused)
     if aux is not None:

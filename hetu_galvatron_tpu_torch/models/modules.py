@@ -12,9 +12,12 @@ plain dense core and ``ops.flash_attention.flash_sdpa`` the CUDA kernels.
 ``ops.cross_entropy.fused_ce_nll`` (the CUDA kernels K4/K5); :func:`remat`
 is per-layer activation checkpointing with the JAX package's policies.
 
-MoE layers live in ``models/moe.py``. Outside this slice, and raising rather
-than ignored: post-norm (bert) and encoder-decoder (t5) blocks, rope scaling
-and multimodal rope.
+Every family of the JAX package's model zoo runs: pre-norm decoder blocks,
+BERT's post-norm blocks with the embedding LayerNorm and the MLM head,
+rope with "linear" / "llama3" scaling (``_scale_inv_freq``), multimodal
+rope (``mrope_cos_sin``) and gemma's zero-centered norms and scaled
+embeddings. MoE layers live in ``models/moe.py``, the T5 encoder-decoder
+stacks in ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -43,20 +46,17 @@ def compute_dtype_of(mixed_precision: str) -> torch.dtype:
 
 
 def check_model_supported(cfg: ModelArgs) -> None:
-    """Raise for model settings this slice of the port does not run."""
-    if cfg.model_type not in ("gpt", "llama", "moe"):
-        raise NotImplementedError(
-            f"model_type={cfg.model_type!r} (bert/t5) is not ported yet; "
-            "this slice runs decoder-only gpt/llama/moe stacks")
-    if cfg.post_norm:
-        raise NotImplementedError("post-norm blocks are not ported yet")
-    if cfg.rope_scaling or cfg.mrope_section:
-        raise NotImplementedError(
-            "rope_scaling / mrope_section are not ported yet")
-    if cfg.norm_zero_centered or cfg.scale_embeddings:
-        raise NotImplementedError(
-            "gemma numerics (norm_zero_centered / scale_embeddings) are not "
-            "ported yet")
+    """Raise before any weight is made for settings the forward would
+    refuse: an unknown ``rope_scaling`` type, or ``mrope_section`` that
+    does not split head_dim / 2 (the ``ValueError`` s of
+    :func:`_scale_inv_freq` and :func:`mrope_cos_sin`)."""
+    if cfg.position_embedding_type != "rope":
+        return
+    _scale_inv_freq(torch.ones(1), cfg.rope_scaling)
+    if cfg.mrope_section and sum(cfg.mrope_section) != cfg.head_dim // 2:
+        raise ValueError(
+            f"mrope sections {tuple(cfg.mrope_section)} must sum to "
+            f"head_dim//2 = {cfg.head_dim // 2}")
 
 
 def normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
@@ -87,30 +87,108 @@ def dropout(x: torch.Tensor, rate: float,
 # ---------------------------------------------------------------------------
 
 
+def init_norm(cfg: ModelArgs, device) -> Params:
+    """Unit scale (0 when ``norm_zero_centered``: gemma stores the offset
+    from 1), and a zero bias for LayerNorm."""
+    init = 0.0 if cfg.norm_zero_centered else 1.0
+    p = {"scale": torch.full((cfg.hidden_size,), init, device=device)}
+    if cfg.normalization == "layernorm":
+        p["bias"] = torch.zeros(cfg.hidden_size, device=device)
+    return p
+
+
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelArgs) -> torch.Tensor:
-    """LayerNorm or RMSNorm in fp32 whatever the activation dtype; empty
-    params are the identity."""
+    """LayerNorm or RMSNorm in fp32 whatever the activation dtype, with
+    ``1 + scale`` under ``norm_zero_centered``; empty params (post-norm
+    stacks have no final norm) are the identity."""
     if not p:
         return x
     dtype = x.dtype
     x = x.float()
+    scale = p["scale"]
+    if cfg.norm_zero_centered:
+        scale = 1.0 + scale
     if cfg.normalization == "rmsnorm":
         var = x.square().mean(dim=-1, keepdim=True)
-        y = x * torch.rsqrt(var + cfg.layernorm_epsilon) * p["scale"]
+        y = x * torch.rsqrt(var + cfg.layernorm_epsilon) * scale
     else:
-        y = F.layer_norm(x, (x.shape[-1],), p["scale"], p["bias"],
+        y = F.layer_norm(x, (x.shape[-1],), scale, p["bias"],
                          cfg.layernorm_epsilon)
     return y.to(dtype)
 
 
-def rope_cos_sin(seq_len: int, head_dim: int, theta: float,
-                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _scale_inv_freq(inv_freq: torch.Tensor,
+                    scaling: Optional[dict]) -> torch.Tensor:
+    """HF-style ``rope_scaling``: "linear" divides the frequencies by
+    ``factor``; "llama3" keeps the high-frequency bands, divides the
+    low-frequency bands by ``factor`` and interpolates between the two
+    wavelength thresholds. fp32 in the JAX function's order, every
+    constant an fp32 tensor: a Python float over a tensor is a reciprocal
+    times the float in torch, not a division."""
+    if not scaling:
+        return inv_freq
+    rope_type = scaling.get("rope_type", scaling.get("type", "linear"))
+    factor = float(scaling.get("factor", 1.0))
+    if rope_type == "linear":
+        return inv_freq / factor
+    if rope_type == "llama3":
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32,
+                                device=inv_freq.device)
+
+        low = float(scaling["low_freq_factor"])
+        high = float(scaling["high_freq_factor"])
+        orig = float(scaling["original_max_position_embeddings"])
+        wavelen = f32(2.0 * math.pi) / inv_freq
+        smooth = (f32(orig) / wavelen - low) / (high - low)
+        smooth = smooth.clamp(0.0, 1.0)
+        return (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+    raise ValueError(f"unsupported rope_scaling type {rope_type!r} "
+                     "(supported: linear, llama3)")
+
+
+def _inv_freq(head_dim: int, theta: float, scaling: Optional[dict],
+              device) -> torch.Tensor:
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, device=device,
                                              dtype=torch.float32)
                                 / head_dim))
+    return _scale_inv_freq(inv_freq, scaling)
+
+
+def rope_cos_sin(seq_len: int, head_dim: int, theta: float, device=None,
+                 scaling: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE tables [seq, head_dim // 2], fp32, with ``rope_scaling``."""
+    inv_freq = _inv_freq(head_dim, theta, scaling, device)
     t = torch.arange(seq_len, device=device, dtype=torch.float32)
     freqs = torch.outer(t, inv_freq)
     return torch.cos(freqs), torch.sin(freqs)
+
+
+def mrope_cos_sin(position_ids: torch.Tensor, head_dim: int, theta: float,
+                  sections, scaling: Optional[dict] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal rope tables [B, S, D/2] from per-axis positions [3, B, S]
+    (temporal, height, width): frequency dim d of section j rotates by
+    position row j. The JAX function selects rows by a one-hot einsum; a
+    gather gives the same bits (a product with 1.0 plus zeros). With the
+    three rows equal it is :func:`rope_cos_sin` gathered per token."""
+    sections = tuple(int(s) for s in sections)
+    if sum(sections) != head_dim // 2:
+        raise ValueError(
+            f"mrope sections {sections} must sum to head_dim//2 "
+            f"= {head_dim // 2}")
+    if position_ids.dim() != 3 or position_ids.shape[0] != len(sections):
+        raise ValueError(
+            f"mrope position_ids must be [{len(sections)}, B, S], got "
+            f"{tuple(position_ids.shape)}")
+    device = position_ids.device
+    inv_freq = _inv_freq(head_dim, theta, scaling, device)
+    row = torch.cat([torch.full((s,), j, dtype=torch.long, device=device)
+                     for j, s in enumerate(sections)])
+    # [3, B, S] -> [B, S, D/2]: dim d takes position row row[d]
+    sel = position_ids.float().permute(1, 2, 0)[..., row] * inv_freq
+    return torch.cos(sel), torch.sin(sel)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -159,6 +237,21 @@ def xla_sdpa(q, k, v, *, causal: bool = True, dropout_rate: float = 0.0,
     probs = dropout(probs, dropout_rate, dropout_rng)
     out = torch.einsum("bkgst,btkd->bskgd", probs.float(), v.float())
     return out.reshape(B, S, N, D).to(q.dtype)
+
+
+def init_attention(gen: torch.Generator, cfg: ModelArgs, device) -> Params:
+    """Fused ``wqkv [H, (nq + 2 nkv) hd]`` at std 0.02, then ``wo`` at the
+    residual std 0.02 / sqrt(2L), drawn in that order; zero biases."""
+    h, hd = cfg.hidden_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.kv_heads
+    p = {"wqkv": normal(gen, (h, (nq + 2 * nkv) * hd), 0.02, device),
+         "wo": normal(gen, (nq * hd, h),
+                      0.02 / math.sqrt(2 * cfg.num_hidden_layers), device)}
+    if cfg.add_qkv_bias:
+        p["bqkv"] = torch.zeros((nq + 2 * nkv) * hd, device=device)
+    if cfg.add_bias_linear:
+        p["bo"] = torch.zeros(h, device=device)
+    return p
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -345,13 +438,21 @@ def apply_decoder_layer(
     dropout_rng: Optional[torch.Generator] = None,
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Pre-norm residual block; sublayer outputs take hidden dropout before
-    the residual add."""
-    if cfg.post_norm:
-        raise NotImplementedError("post-norm blocks are not ported yet")
+    """Pre-norm residual block, or with ``cfg.post_norm`` (BERT) residual
+    then norm for both sublayers; sublayer outputs take hidden dropout
+    before the residual add. ``causal=None`` is bidirectional for bert."""
     if causal is None:
         causal = cfg.model_type != "bert"
     r_attn, r_res1, r_res2 = split_rng(dropout_rng, 3)
+    if cfg.post_norm:
+        x = apply_norm(p["ln1"], x + dropout(
+            apply_attention(p["attn"], x, cfg, rope=rope, sdpa_fn=sdpa_fn,
+                            compute_dtype=compute_dtype, causal=causal,
+                            dropout_rng=r_attn, segment_ids=segment_ids),
+            cfg.hidden_dropout, r_res1), cfg)
+        return apply_norm(p["ln2"], x + dropout(
+            apply_mlp(p["mlp"], x, cfg, compute_dtype=compute_dtype),
+            cfg.hidden_dropout, r_res2), cfg)
     h = apply_norm(p["ln1"], x, cfg)
     x = x + dropout(apply_attention(p["attn"], h, cfg, rope=rope,
                                     sdpa_fn=sdpa_fn,
@@ -370,28 +471,68 @@ def apply_decoder_layer(
 # ---------------------------------------------------------------------------
 
 
+def init_embedding(gen: torch.Generator, cfg: ModelArgs, device) -> Params:
+    """``wte`` (then ``wpe`` for learned positions) at std 0.02; post-norm
+    stacks (BERT) add the embedding LayerNorm."""
+    p = {"wte": normal(gen, (cfg.padded_vocab_size, cfg.hidden_size), 0.02,
+                       device)}
+    if cfg.position_embedding_type == "learned":
+        p["wpe"] = normal(gen, (cfg.max_position_embeddings,
+                                cfg.hidden_size), 0.02, device)
+    if cfg.post_norm:
+        p["ln"] = init_norm(cfg, device)
+    return p
+
+
 def apply_embedding(p: Params, tokens: torch.Tensor, cfg: ModelArgs,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     dropout_rng: Optional[torch.Generator] = None,
                     position_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
+    """Token (+ position) rows in fp32, then BERT's LayerNorm, gemma's
+    sqrt(hidden) scale and dropout, cast to the compute dtype."""
     x = p["wte"][tokens]
     if "wpe" in p:
         if position_ids is not None:  # packed samples: per-token positions
             x = x + p["wpe"][position_ids]
         else:
             x = x + p["wpe"][:tokens.shape[1]][None, :, :]
+    if "ln" in p:
+        x = apply_norm(p["ln"], x, cfg)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(float(cfg.hidden_size), dtype=torch.float32,
+                             device=x.device).sqrt().to(x.dtype)
     x = dropout(x, cfg.hidden_dropout, dropout_rng)
     return x.to(compute_dtype)
+
+
+def init_lm_head(gen: torch.Generator, cfg: ModelArgs, device) -> Params:
+    """BERT's MLM head (``wt [H, H]`` at std 0.02, zero ``bt``, a norm, a
+    zero vocab ``bias``, then ``whead`` when untied), else ``whead [H, V]``
+    when untied and nothing when tied."""
+    h, v = cfg.hidden_size, cfg.padded_vocab_size
+    if cfg.model_type == "bert":
+        p = {"wt": normal(gen, (h, h), 0.02, device),
+             "bt": torch.zeros(h, device=device), "ln": init_norm(cfg, device),
+             "bias": torch.zeros(v, device=device)}
+        if not cfg.tie_word_embeddings:
+            p["whead"] = normal(gen, (h, v), 0.02, device)
+        return p
+    if cfg.tie_word_embeddings:
+        return {}
+    return {"whead": normal(gen, (h, v), 0.02, device)}
 
 
 def apply_lm_head(p: Params, x: torch.Tensor, cfg: ModelArgs,
                   wte: Optional[torch.Tensor] = None,
                   compute_dtype: torch.dtype = torch.bfloat16
                   ) -> torch.Tensor:
-    """fp32 logits [B, S, V]; the tied head reuses the embedding table."""
+    """fp32 logits [B, S, V]; the tied head reuses the embedding table.
+    BERT's MLM head first runs its transform (``wt`` + ``bt``, the
+    activation and the norm, in fp32) and adds the vocab bias last."""
     if "wt" in p:
-        raise NotImplementedError("the bert MLM head is not ported yet")
+        x = _linear(x, p["wt"], None, compute_dtype).float() + p["bt"]
+        x = apply_norm(p["ln"], _ACTS[cfg.hidden_act](x), cfg)
     w = p["whead"] if "whead" in p else wte.t()
     logits = torch.matmul(x.to(compute_dtype), w.to(compute_dtype)).float()
     if "bias" in p:

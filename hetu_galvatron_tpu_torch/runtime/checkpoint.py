@@ -151,7 +151,7 @@ def _plan_fingerprint(hpc) -> Dict[str, Any]:
     """The JAX package's plan fingerprint (``strategy_list2config`` of the
     per-layer strategies plus ``world_size``) for the port's one plan: one
     device, no pipeline, no tensor / context / expert parallelism, per-layer
-    remat flags."""
+    remat flags (over t5's combined stack, with its split point)."""
     flags = list(hpc.checkpoint_flags)
 
     def enc(values):
@@ -167,7 +167,8 @@ def _plan_fingerprint(hpc) -> Dict[str, Any]:
         "pp_division": str(len(flags)), "pipeline_type": "gpipe",
         "default_dp_type": "ddp", "vtp": 1, "vsp": 0, "vcp": 1,
         "embed_sdp": 0, "world_size": int(hpc.world_size),
-    }
+    } | ({"num_encoder_layers": int(hpc.num_encoder_layers)}
+         if hpc.num_encoder_layers else {})
 
 
 class PlanMismatchError(ValueError):
@@ -995,11 +996,12 @@ class CheckpointCadence:
 
 _NORM = {"scale", "bias"}
 _KEYS = {
-    "embed": {"wte", "wpe"},
+    "embed": {"wte", "wpe", "ln"},
     "attn": {"wqkv", "bqkv", "wo", "bo"},
+    "cross": {"wq", "bq", "wkv", "bkv", "wo", "bo"},
     "mlp": {"win", "bin", "wout", "bout"},
     "moe": {"router", "win", "wout", "shared", "expert_bias"},
-    "head": {"whead"},
+    "head": {"whead", "wt", "bt", "ln", "bias"},
 }
 
 
@@ -1007,8 +1009,8 @@ def _check_keys(tree: Dict, allowed, where: str) -> None:
     extra = set(tree) - set(allowed)
     if extra:
         raise ValueError(f"{where}: keys {sorted(extra)} are outside this "
-                         "slice of the port (bert / t5 trees are not "
-                         "ported yet)")
+                         "slice of the port, which reads the trees of the JAX "
+                         "package's model zoo")
 
 
 def _to_torch(x, device) -> torch.Tensor:
@@ -1021,12 +1023,21 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _map(tree: Dict, fn, where: str, allowed) -> Dict:
+    """Leaves through ``fn``; a nested ``ln`` (BERT's embedding and MLM
+    head norms) is a norm subtree."""
     _check_keys(tree, allowed, where)
-    return {k: fn(v) for k, v in tree.items()}
+    return {k: (_map(v, fn, f"{where}.{k}", _NORM) if k == "ln" else fn(v))
+            for k, v in tree.items()}
 
 
 def _convert(tree: Params, leaf, layers_type) -> Params:
-    _check_keys(tree, {"embed", "layers", "prenorm", "head"}, "params")
+    """Every tree of the JAX package's model zoo: decoder-only (dense or
+    MoE layers), BERT's (an embedding LayerNorm, the MLM head, an empty
+    ``prenorm``) and T5's (``enc_layers``, ``enc_norm``, and decoder layers
+    with ``lnx`` and ``cross``)."""
+    t5 = "enc_layers" in tree
+    _check_keys(tree, {"embed", "layers", "prenorm", "head"}
+                | ({"enc_layers", "enc_norm"} if t5 else set()), "params")
 
     def norm(t, where):
         return _map(t, leaf, where, _NORM)
@@ -1039,24 +1050,30 @@ def _convert(tree: Params, leaf, layers_type) -> Params:
                                  _KEYS["mlp"])
         return out
 
-    layers = []
-    for i, lp in enumerate(tree["layers"]):
+    def layer(lp, where, cross):
         ffn = "moe" if "moe" in lp else "mlp"
-        _check_keys(lp, {"ln1", "attn", "ln2", ffn}, f"layers[{i}]")
-        where = f"layers[{i}].{ffn}"
-        layers.append({
-            "ln1": norm(lp["ln1"], f"layers[{i}].ln1"),
-            "attn": _map(lp["attn"], leaf, f"layers[{i}].attn", _KEYS["attn"]),
-            "ln2": norm(lp["ln2"], f"layers[{i}].ln2"),
-            ffn: (moe(lp[ffn], where) if ffn == "moe" else
-                  _map(lp[ffn], leaf, where, _KEYS["mlp"])),
-        })
-    return {
+        blocks = {"ln1": norm, "ln2": norm, "lnx": norm,
+                  "attn": lambda t, w: _map(t, leaf, w, _KEYS["attn"]),
+                  "cross": lambda t, w: _map(t, leaf, w, _KEYS["cross"]),
+                  "mlp": lambda t, w: _map(t, leaf, w, _KEYS["mlp"]),
+                  "moe": moe}
+        _check_keys(lp, {"ln1", "attn", "ln2", ffn}
+                    | ({"lnx", "cross"} if cross else set()), where)
+        return {k: blocks[k](v, f"{where}.{k}") for k, v in lp.items()}
+
+    out = {
         "embed": _map(tree["embed"], leaf, "embed", _KEYS["embed"]),
-        "layers": layers_type(layers),
+        "layers": layers_type(layer(lp, f"layers[{i}]", t5)
+                              for i, lp in enumerate(tree["layers"])),
         "prenorm": norm(tree.get("prenorm", {}), "prenorm"),
         "head": _map(tree.get("head", {}), leaf, "head", _KEYS["head"]),
     }
+    if t5:
+        out["enc_layers"] = layers_type(
+            layer(lp, f"enc_layers[{j}]", False)
+            for j, lp in enumerate(tree["enc_layers"]))
+        out["enc_norm"] = norm(tree["enc_norm"], "enc_norm")
+    return out
 
 
 def params_from_jax(tree: Params, device="cpu") -> Params:

@@ -4,10 +4,12 @@ Counterpart of ``hetu_galvatron_tpu/runtime/dataloader.py``: the same
 deterministic random-token dataset, the indexed corpus of
 ``data/indexed_dataset.py`` split into train/valid/test document ranges,
 end-of-document loss masking and packed-document fields
-(``position_ids`` / ``segment_ids``), giving the same numpy batches for the
-same seed and position; ``skip_batches`` replays a resumed run's data
-position. Not ported yet, and raising: ``s3://`` corpus
-prefixes, the bert/t5 batch shapes and the zigzag cp layout.
+(``position_ids`` / ``segment_ids``), BERT's masked-LM batches
+(``mlm_batches``, the masks bit-identical to JAX's at the same seed) and
+T5's seq2seq split (``seq2seq_batches``), giving the same numpy batches for
+the same seed and position; ``skip_batches`` replays a resumed run's data
+position. Not ported yet, and raising: ``s3://`` corpus prefixes and the
+zigzag cp layout.
 """
 
 from __future__ import annotations
@@ -49,6 +51,34 @@ def make_batch(samples: np.ndarray) -> Dict[str, np.ndarray]:
         "labels": samples[:, 1:].astype(np.int32),
         "loss_mask": np.ones_like(samples[:, 1:], dtype=np.float32),
     }
+
+
+def make_mlm_batch(samples: np.ndarray, vocab_size: int,
+                   rng: np.random.RandomState, *, mask_prob: float = 0.15,
+                   mask_token: Optional[int] = None,
+                   eligible: Optional[np.ndarray] = None
+                   ) -> Dict[str, np.ndarray]:
+    """[B, S] tokens -> a BERT masked-LM batch: ``mask_prob`` of the
+    positions are selected (80% become ``mask_token``, 10% a random id, 10%
+    stay); labels are the originals and ``loss_mask`` covers the selected
+    positions. ``rng`` advances across calls; the draws (``rand``,
+    ``rand``, ``randint``) are JAX's, in its order, so the masks are its
+    bits. ``mask_token`` defaults to the padded vocab's top id;
+    ``eligible`` limits which positions may be selected (eod tokens under
+    ``eod_mask_loss``)."""
+    tokens = samples.astype(np.int32).copy()
+    labels = samples.astype(np.int32)
+    mask_token = vocab_size - 1 if mask_token is None else mask_token
+    selected = rng.rand(*tokens.shape) < mask_prob
+    if eligible is not None:
+        selected &= np.asarray(eligible) > 0
+    action = rng.rand(*tokens.shape)
+    tokens[selected & (action < 0.8)] = mask_token
+    random_ids = rng.randint(0, vocab_size, tokens.shape)
+    swap = selected & (action >= 0.8) & (action < 0.9)
+    tokens[swap] = random_ids[swap]
+    return {"tokens": tokens, "labels": labels,
+            "loss_mask": selected.astype(np.float32)}
 
 
 def synthetic_batches(model: ModelArgs, global_batch_size: int, *,
@@ -93,9 +123,7 @@ def get_data_iterator(args: CoreArgs, *,
     seed."""
     gbs = global_batch_size or args.parallel.global_train_batch_size
     data = args.data
-    if args.model.model_type in ("bert", "t5"):
-        raise NotImplementedError(
-            f"{args.model.model_type} batches are not ported yet")
+    model_type = args.model.model_type
     meta: Dict = {}
     split_idx = _SPLIT_INDEX[split]
     if data.dataset == "random":
@@ -125,11 +153,18 @@ def get_data_iterator(args: CoreArgs, *,
                              seed=args.train.seed, split=data.split,
                              split_index=split_idx,
                              shuffle=split == "train")
-        if data.eod_mask_loss and meta.get("eod_id") is not None:
+        if (data.eod_mask_loss and meta.get("eod_id") is not None
+                and model_type != "bert"):
+            # bert leaves eod to mlm_batches: the causal shift's mask is
+            # one position off for MLM
             it = eod_masked_batches(it, meta["eod_id"])
     else:
         raise ValueError(f"unknown dataset kind {data.dataset}")
     if data.reset_position_ids or data.reset_attention_mask:
+        if model_type in ("bert", "t5"):
+            raise NotImplementedError(
+                "reset_position_ids/reset_attention_mask are causal-LM "
+                "packing flags (bert/t5 batches have no packed documents)")
         if meta.get("eod_id") is None:
             raise ValueError(
                 "reset_position_ids/reset_attention_mask need document "
@@ -139,6 +174,14 @@ def get_data_iterator(args: CoreArgs, *,
             it, meta["eod_id"],
             reset_position_ids=data.reset_position_ids,
             reset_attention_mask=data.reset_attention_mask)
+    if model_type == "bert":
+        # encoders train on masked LM, never the causal shift
+        return mlm_batches(it, args.model, seed=args.train.seed,
+                           mask_token=meta.get("mask_id"),
+                           eod_id=(meta.get("eod_id")
+                                   if data.eod_mask_loss else None))
+    if model_type == "t5":
+        return seq2seq_batches(it)
     return it
 
 
@@ -227,3 +270,30 @@ def packed_doc_batches(it: Iterator[Dict[str, np.ndarray]], eod_id: int, *,
             reset_position_ids=reset_position_ids,
             reset_attention_mask=reset_attention_mask))
         yield batch
+
+
+def seq2seq_batches(it: Iterator[Dict[str, np.ndarray]]
+                    ) -> Iterator[Dict[str, np.ndarray]]:
+    """Causal batches -> seq2seq: the first half of each sample is the
+    encoder's source, the second half the decoder's input and labels
+    (already the one-step-shifted pair, so both halves stay aligned)."""
+    for batch in it:
+        tokens = batch["tokens"]
+        half = tokens.shape[1] // 2
+        yield {"enc_tokens": tokens[:, :half], "tokens": tokens[:, half:],
+               "labels": batch["labels"][:, half:],
+               "loss_mask": batch["loss_mask"][:, half:]}
+
+
+def mlm_batches(it: Iterator[Dict[str, np.ndarray]], model: ModelArgs,
+                seed: int, mask_token: Optional[int] = None,
+                eod_id: Optional[int] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+    """Masked-LM batches from the token stream, masks drawn from
+    ``RandomState(seed + 1)``; ``eod_id`` keeps end-of-document tokens out
+    of the selection."""
+    rng = np.random.RandomState(seed + 1)
+    for batch in it:
+        eligible = (batch["tokens"] != eod_id) if eod_id is not None else None
+        yield make_mlm_batch(batch["tokens"], model.padded_vocab_size, rng,
+                             mask_token=mask_token, eligible=eligible)

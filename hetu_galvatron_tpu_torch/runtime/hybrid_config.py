@@ -4,7 +4,9 @@ Counterpart of ``hetu_galvatron_tpu/runtime/hybrid_config.py``, for the one
 plan this slice of the port runs: one device, no pipeline, no tensor or
 context parallelism, with per-layer activation checkpointing
 (``parallel.global_checkpoint`` sets it on every layer, as the JAX plan's
-``LayerStrategy.checkpoint``). Anything wider (world > 1, pp > 1,
+``LayerStrategy.checkpoint``). For t5 the flags span the combined stack,
+encoder layers first (``num_encoder_layers``, ``enc_flags`` /
+``dec_flags``), as the JAX plan's ``layers`` do. Anything wider (world > 1, pp > 1,
 tp/cp/ulysses/ep, ZeRO-3, a searched JSON plan) raises and names the later
 slice (the SPMD plans on NCCL and the pipeline engines of ROADMAP.md
 queue 1).
@@ -28,6 +30,16 @@ class HybridParallelConfig:
     global_bsz: int
     world_size: int
     checkpoint_flags: List[bool]  # per layer: remat it
+    # t5: the flags span encoder + decoder layers; the split point
+    num_encoder_layers: int = 0
+
+    @property
+    def enc_flags(self) -> List[bool]:
+        return self.checkpoint_flags[:self.num_encoder_layers]
+
+    @property
+    def dec_flags(self) -> List[bool]:
+        return self.checkpoint_flags[self.num_encoder_layers:]
 
     def describe(self) -> str:
         return (f"pp{self.pp_deg} chunks{self.chunks} bsz{self.global_bsz} "
@@ -76,6 +88,11 @@ def get_hybrid_parallel_config(args: CoreArgs,
                                world_size: int) -> HybridParallelConfig:
     check_single_device(args, world_size)
     par = args.parallel
+    n_enc = 0
+    if args.model.model_type == "t5":
+        n_enc = (args.model.num_encoder_layers
+                 if args.model.num_encoder_layers is not None
+                 else args.model.num_hidden_layers)
     chunks = get_chunks(args, world_size)
     if par.global_train_batch_size % chunks:
         raise ValueError(
@@ -85,4 +102,5 @@ def get_hybrid_parallel_config(args: CoreArgs,
                                 global_bsz=par.global_train_batch_size,
                                 world_size=world_size,
                                 checkpoint_flags=[bool(par.global_checkpoint)]
-                                * args.model.num_hidden_layers)
+                                * (n_enc + args.model.num_hidden_layers),
+                                num_encoder_layers=n_enc)

@@ -33,13 +33,17 @@ from hetu_galvatron_tpu_torch.runtime.optimizer import AdamW, global_grad_norm
 
 def make_loss_fn(cfg: ModelArgs, *, compute_dtype=torch.bfloat16,
                  remat_flags=None, layer_overrides=None,
+                 enc_remat_flags=None, enc_layer_overrides=None,
                  with_moe_stats: bool = False) -> Callable:
     """``loss_fn(params, batch)``: the loss, or ``(loss, MoE stats)`` with
-    ``with_moe_stats`` (the loss function of an ``aux_stats`` step)."""
+    ``with_moe_stats`` (the loss function of an ``aux_stats`` step). The
+    ``enc_*`` pair indexes a t5 model's encoder stack."""
     def loss_fn(params, batch):
         return causal_lm_loss(params, batch, cfg, compute_dtype=compute_dtype,
                               remat_flags=remat_flags,
                               layer_overrides=layer_overrides,
+                              enc_remat_flags=enc_remat_flags,
+                              enc_layer_overrides=enc_layer_overrides,
                               with_moe_stats=with_moe_stats)
     return loss_fn
 

@@ -111,12 +111,15 @@ def test_torch_schema_fields_match_jax_schema():
 
 def test_torch_config_rejects_unknown_and_bad_values():
     # a key the JAX schema knows but the port does not read loads
-    args = TA.load_config(None, ["model.num_encoder_layers=4",
+    args = TA.load_config(None, ["model.untie_streams=true",
                                  "search.max_bsz=32", "serving.spec_k=2",
-                                 "model.moe_topk=4"])
+                                 "model.moe_topk=4",
+                                 "model.num_encoder_layers=4"])
     assert args.device == "cuda"
-    # the MoE keys are read since the MoE layers were ported
+    # the MoE keys are read since the MoE layers were ported, and the t5
+    # encoder depth since the encoder-decoder was
     assert args.model.moe_topk == 4
+    assert args.model.num_encoder_layers == 4
     with pytest.raises(ValueError, match="moe_dispatcher"):
         TA.load_config(None, ["model.moe_dispatcher=alltoall"])
     with pytest.raises(ValueError, match="unknown config key"):

@@ -235,12 +235,15 @@ def test_torch_weight_bridge_round_trips_exactly(family):
 
 def test_torch_weight_bridge_rejects_trees_outside_the_slice():
     _, _, npy, _ = _setup("gpt")
-    # a t5 decoder block's cross-attention, and a bert MLM head
+    # a t5 decoder block's cross-attention in a tree with no encoder, a
+    # head leaf no family has, a bert head's unknown transform leaf
     t5 = dict(npy)
     t5["layers"] = ({**npy["layers"][0], "lnx": {}, "cross": {}},) \
         + npy["layers"][1:]
-    bert = dict(npy, head={"wt": np.zeros((64, 64), np.float32)})
-    for tree in (t5, bert):
+    adapter = dict(npy, head={"adapter": np.zeros((64, 64), np.float32)})
+    bert = dict(npy, head={"wt": np.zeros((64, 64), np.float32),
+                           "wt2": np.zeros((64, 64), np.float32)})
+    for tree in (t5, adapter, bert):
         with pytest.raises(ValueError, match="outside this slice"):
             params_from_jax(tree)
 
@@ -253,11 +256,20 @@ def test_torch_model_refuses_settings_outside_the_slice():
     # test_torch_causal_lm_packed_remat_fused_ce_matches_jax)
     TB.forward_causal_lm(params, tokens, cfg, remat_flags=[True, False],
                          segment_ids=torch.zeros_like(tokens))
-    for bad in (dict(norm_position="post"), dict(model_type="bert"),
-                dict(model_type="t5"),
-                dict(rope_scaling={"rope_type": "linear", "factor": 2.0})):
-        with pytest.raises(NotImplementedError):
-            TB.init_causal_lm(ModelArgs(**{**GPT, **bad}), seed=0)
+    # post-norm, bert, t5 and rope scaling run too (parity in
+    # test_torch_bert.py, test_torch_t5.py, test_torch_zoo_numerics.py);
+    # what no family defines is refused before any weight is made
+    for ok in (dict(norm_position="post"), dict(model_type="bert"),
+               dict(model_type="t5"),
+               dict(position_embedding_type="rope",
+                    rope_scaling={"rope_type": "linear", "factor": 2.0})):
+        TB.init_causal_lm(ModelArgs(**{**GPT, **ok}), seed=0)
+    for bad in (dict(rope_scaling={"rope_type": "dynamic", "factor": 2.0}),
+                dict(mrope_section=[4, 4, 4])):
+        with pytest.raises(ValueError):
+            TB.init_causal_lm(ModelArgs(**{**GPT, **bad,
+                                           "position_embedding_type":
+                                           "rope"}), seed=0)
 
 
 def test_torch_hidden_dropout_uses_the_explicit_generator():

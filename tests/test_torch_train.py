@@ -76,15 +76,16 @@ def test_torch_data_iterators_equal_jax_per_split():
     no_eval = TD.get_train_valid_test_data_iterators(
         load_config(None, over[:-3]))
     assert no_eval[1] is None and no_eval[2] is None
-    # an indexed corpus needs a path, packed documents need its eod id
-    # (JAX raises the same); bert batches are not ported
+    # an indexed corpus needs a path, packed documents need its eod id, and
+    # bert batches have no packed documents (JAX raises the same); bert's
+    # masked-LM batches are held to JAX's in test_torch_bert.py
     for bad, err in ((["data.dataset=indexed"], "data_path"),
                      (["data.reset_attention_mask=true"], "eod")):
         with pytest.raises(ValueError, match=err):
             TD.get_data_iterator(load_config(None, over + bad))
     with pytest.raises(NotImplementedError):
         TD.get_data_iterator(load_config(None, over + [
-            "model.model_type=bert"]))
+            "model.model_type=bert", "data.reset_attention_mask=true"]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Where one training step of the PyTorch/CUDA port spends its GPU time.
 
     python3 tools/torch_step_breakdown.py [config.yaml] [--packed-corpus DIR]
-        [key=value ...]
+        [--doc-len N] [key=value ...]
 
 Runs a config (``gpt2-small.yaml`` by default, at bsz 8 and bf16, the flash
 kernels on every layer) through the port's entry point
@@ -16,12 +16,13 @@ which the profiler's host work does not stretch. Extra ``key=value``
 arguments override the config as in ``train_dist``
 (``model.use_flash_attn=false`` times the plain attention core instead).
 ``--packed-corpus DIR`` writes the seeded packed corpus of ``chip_smoke.py``
-phases 6 and 7 (600 documents of about 1500 tokens, in the vocabulary and
-with the eod id of the config's tokenizer, ``data.synthetic.
-corpus_tokenizer``: Qwen's 151643, Mistral's 2) into DIR with
-``data.synthetic.write_random_corpus`` and trains on it with packed
-documents and end-of-document loss masking. Prints a table and, as its last
-line, the result as JSON. Needs one CUDA card.
+phases 6, 7 and 9 (600 documents of about ``--doc-len`` tokens, 1500 by
+default, in the vocabulary and with the eod id of the config's tokenizer,
+``data.synthetic.corpus_tokenizer``: Qwen's 151643, Mistral's 2, Llama
+3's 128001) into DIR with ``data.synthetic.write_random_corpus`` and
+trains on it with packed documents and end-of-document loss masking.
+Prints a table and, as its last line, the result as JSON. Needs one CUDA
+card.
 
 The Qwen2.5-7B-width path of ``chip_smoke.py`` phase 6 (4 layers, bsz 2,
 seq 4096, fused cross-entropy, remat on every layer):
@@ -33,7 +34,20 @@ seq 4096, fused cross-entropy, remat on every layer):
         parallel.global_train_batch_size=2
 
 The Mixtral-8x7B-width path of phase 7 takes ``mixtral-8x7b.yaml`` and
-``model.num_hidden_layers=2`` in their place.
+``model.num_hidden_layers=2`` in their place. The zoo paths of phases
+9-11:
+
+    python3 tools/torch_step_breakdown.py \
+        hetu_galvatron_tpu/models/configs/llama3.1-70b.yaml \
+        --packed-corpus llama_corpus --doc-len 3000 \
+        model.num_hidden_layers=2 model.use_fused_ce=true \
+        parallel.global_checkpoint=1 parallel.global_train_batch_size=1
+    python3 tools/torch_step_breakdown.py \
+        hetu_galvatron_tpu/models/configs/bert-large.yaml \
+        model.use_fused_ce=true parallel.global_train_batch_size=32
+    python3 tools/torch_step_breakdown.py \
+        hetu_galvatron_tpu/models/configs/t5-3b.yaml model.use_fused_ce=true \
+        parallel.global_checkpoint=1 parallel.global_train_batch_size=16
 """
 
 from __future__ import annotations
@@ -104,6 +118,11 @@ def main(argv) -> int:
     if argv and argv[0].endswith((".yaml", ".yml")):
         config, argv = argv[0], argv[1:]
     argv = list(argv)
+    doc_len = 1500
+    if "--doc-len" in argv:
+        i = argv.index("--doc-len")
+        doc_len = int(argv[i + 1])
+        del argv[i:i + 2]
     if "--packed-corpus" in argv:
         i = argv.index("--packed-corpus")
         corpus_dir = argv[i + 1]
@@ -111,7 +130,7 @@ def main(argv) -> int:
         os.makedirs(corpus_dir, exist_ok=True)
         prefix = os.path.join(os.path.abspath(corpus_dir), "corpus")
         name = load_config(config, argv).model.model_name
-        write_random_corpus(prefix, docs=600, mean_len=1500,
+        write_random_corpus(prefix, docs=600, mean_len=doc_len,
                             **corpus_tokenizer(name))
         argv = packed_corpus_overrides(prefix) + argv
     args = load_config(config, ["parallel.global_train_batch_size=8",
