@@ -104,6 +104,39 @@ each of which ends the run with a non-zero exit when it fails:
    (phase 11 also by executed FLOPs), peak memory (under 79 GiB), exact
    launches and the step-0 loss against ln V + sigma^2 / 2.
    ``python3 chip_smoke.py --zoo-only`` runs phases 1-3 and 9-11.
+12. main path of slice 8, the batch-size ramp and observability:
+    phase 6's config (4 layers, seq 4096, fused cross-entropy, remat, the
+    packed corpus) at a global batch of 8 in 4 microbatches of 2 under
+    ``train.rampup_batch_size=[2,2,24]`` for 14 steps (batches 2, 2, 2,
+    2, 4, 4, 6, 6, 8, ..., 8: 38 microbatches), run twice through
+    ``train``: (a) observability off; (b) the JSONL metrics stream (a
+    record set per step, tokens/s over the default window, which spans
+    the whole run), the flight recorder and a ``torch.profiler`` trace of
+    iterations 10-11. Exact launches of the 38 microbatches in each run;
+    losses and a SHA-256 of every parameter bit-identical between (a) and
+    (b); the stream's gauges; the telemetry's tokens/s over steps 1-13
+    and, from the per-step gauges, over the untraced batch-8 steps 8, 9,
+    12, 13, each within 3% of the same steps' tokens over their CUDA-event
+    time (events at each step's end, after the loss read has drained the
+    stream: the host's step interval on a second clock);
+    ``trace_analysis.attribute`` over the trace: 2 steps, K1-K5 by kernel
+    name as often as the launch counters over the window, the device wall
+    a step within 10% of the window's CUDA events, categories beside
+    ``tools/torch_step_breakdown.py``'s;
+    (b)'s median untraced step within 2% of (a)'s or inside (a)'s
+    spread; peak memory under 79 GiB.
+13. GPT-2 small at full size under ``cli.supervise`` with
+    ``supervisor.metrics_port=0``, the metrics stream and the flight
+    recorder: a checkpoint every 2 steps, a real SIGTERM at step 3 (exit
+    18), a relaunch that resumes and finishes 6 steps. It reads the
+    printed port, polls ``/healthz`` (attempt 2, last child exit 18) and
+    scrapes ``/metrics`` (Prometheus text with ``supervisor_*`` and
+    ``train_*`` series); the final child's goodput survived 1 restart with
+    productive, first-step, checkpoint and resume time above 0 and a sum
+    within the supervisor's wall; the flight dumps carry JAX's reasons
+    (``signal:SIGTERM``, ``child_exit_18``) and ``cli/summarize.py`` reads
+    each; the stitched losses and parameters equal an uninterrupted run's.
+    ``python3 chip_smoke.py --obs-only`` runs phases 1-3, 12 and 13.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
@@ -115,13 +148,16 @@ The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 training step and in the no-grad evals, beside the kernel, plain, library
 and bound times measured at that path's shape. The row's own ``launches``
 and times are those of slice 7's Llama path (phase 9), the one that runs
-every kernel at the largest shapes. K1-K3's blocks also carry the
+every kernel at the largest shapes; under ``--obs-only``, those of phase
+12's ramp path. K1-K3's blocks also carry the
 measured part of the report above; T5's block carries its three shapes
 under ``by_shape``.
 """
 
 from __future__ import annotations
 
+import glob
+import inspect
 import json
 import math
 import os
@@ -1841,6 +1877,467 @@ def lifecycle_path(smi: str, qwen_prefix: str):
     return qwen, gpt2
 
 
+# -- phases 12-13: the batch-size ramp, train_loop and observability -------
+
+RAMP_ITERS = 14
+RAMP_GBS, RAMP_CHUNKS = 8, 4  # the micro size stays 2
+RAMP = [2, 2, 24]
+RAMP_BATCHES = [2, 2, 2, 2, 4, 4, 6, 6, 8, 8, 8, 8, 8, 8]
+TRACE_FROM, TRACE_ITERS = 10, 2  # two batch-8 iterations
+UNTRACED_FULL = (8, 9, 12, 13)  # the untraced batch-8 steps
+RAMP_PATH = f"qwen2.5-7b-{QWEN_LAYERS}-layers-ramp"
+OBS_GPT2_PATH = "gpt2-small-supervised-observability"
+OBS_PREEMPT_AT = 3
+TOKENS_TOL = 0.03  # telemetry tokens/s against CUDA events
+WALL_TOL = 0.10  # a trace's device wall against the window's CUDA events
+OVERHEAD_TOL = 0.02  # median step with observability on against off
+PROM_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$")
+
+
+def param_digests(params):
+    """A SHA-256 of every parameter (as ``run_summary`` hashes them)."""
+    import hashlib
+
+    from hetu_galvatron_tpu_torch.models.builder import named_leaves
+
+    return {name: hashlib.sha256(t.detach().cpu().contiguous().numpy())
+            .hexdigest() for name, t in named_leaves(params)}
+
+
+def ramp_run(tag, args, per_mb):
+    """One phase-12 run of ``train``: CUDA events at every step's end, the
+    launch counters over the traced window, the exact launches of its
+    microbatches, peak memory and the parameters' digests."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    events, snap = [], {}
+
+    def on_step(it, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if it in (TRACE_FROM - 1, TRACE_FROM + TRACE_ITERS - 1):
+            snap[it] = dict(_build.launch_counts)
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = [None] + [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    mbs = sum(RAMP_BATCHES) // (RAMP_GBS // RAMP_CHUNKS)
+    want = {k: per_mb[k] * mbs for k in per_mb}
+    log(f"  ({tag}) batch sizes {out['batch_sizes']}; launches {launches} "
+        f"(want {want}: {mbs} microbatches); losses {out['losses']}")
+    if out["batch_sizes"] != RAMP_BATCHES:
+        raise SmokeFailure(f"({tag}) batch sizes {out['batch_sizes']}, want "
+                           f"{RAMP_BATCHES}")
+    if launches != want:
+        raise SmokeFailure(f"({tag}) launches {launches}, want {want}")
+    if not all(map(math.isfinite, out["losses"])):
+        raise SmokeFailure(f"({tag}) losses not finite: {out['losses']}")
+    traced = {k: snap[TRACE_FROM + TRACE_ITERS - 1][k]
+              - snap[TRACE_FROM - 1][k] for k in per_mb}
+    res = dict(losses=out["losses"], step_ms=step_ms, wall_s=wall,
+               peak_mem_gib=peak, launches=launches, traced_launches=traced,
+               digests=param_digests(out["params"]),
+               goodput=out["goodput"], flight_dumps=out["flight_dumps"],
+               trace_window_ms=out["trace_window_ms"],
+               consumed_samples=out["consumed_samples"])
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def stream_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def qwen_ramp_path(smi: str, prefix: str, tmp: str):
+    """Phase 12: the Qwen2.5-7B-width path (4 layers, seq 4096, fused CE,
+    full remat, phase 6's packed corpus) under the ramp 2, 2, 24 to batch 8
+    in 4 microbatches of 2, 14 steps, once with observability off and once
+    with the metrics stream, the flight recorder and a trace of two batch-8
+    iterations."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+    from hetu_galvatron_tpu_torch.observability.telemetry import (
+        TrainingTelemetry,
+        peak_device_tflops,
+    )
+    from hetu_galvatron_tpu_torch.observability.trace_analysis import (
+        attribute,
+        load_trace,
+    )
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from torch_step_breakdown import category as breakdown_category
+
+    base = [f"model.num_hidden_layers={QWEN_LAYERS}",
+            "model.use_fused_ce=true", "parallel.global_checkpoint=1",
+            "parallel.mixed_precision=bf16",
+            f"parallel.global_train_batch_size={RAMP_GBS}",
+            f"parallel.chunks={RAMP_CHUNKS}",
+            "train.rampup_batch_size=[" + ",".join(map(str, RAMP)) + "]",
+            f"train.train_iters={RAMP_ITERS}",
+            *packed_corpus_overrides(prefix)]
+    L = QWEN_LAYERS
+    # per microbatch of 2 (remat runs K1 twice a layer); no evals
+    per_mb = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L,
+              "ce_fwd": 1, "ce_bwd": 1}
+    obs = os.path.join(tmp, "obs_qwen")
+    stream = os.path.join(obs, "metrics.jsonl")
+    trace_dir = os.path.join(obs, "trace")
+    args_off = load_config(QWEN_YAML, base)
+    args_on = load_config(QWEN_YAML, base + [
+        "observability.enabled=true", f"observability.metrics_path={stream}",
+        f"observability.flight_dir={os.path.join(obs, 'flight')}",
+        "observability.flush_interval=1",
+        f"profile.trace_dir={trace_dir}", "observability.audit=false",
+        f"profile.profile_warmup={TRACE_FROM}",
+        f"profile.trace_iters={TRACE_ITERS}"])
+    off = ramp_run("a, observability off", args_off, per_mb)
+    on = ramp_run("b, observability on", args_on, per_mb)
+    if on["losses"] != off["losses"]:
+        raise SmokeFailure(f"losses with observability on {on['losses']} "
+                           f"differ from off {off['losses']}")
+    if on["digests"] != off["digests"]:
+        raise SmokeFailure("final parameters with observability on differ "
+                           "from off")
+    log(f"  losses and the SHA-256 of all {len(on['digests'])} parameters "
+        "bit-identical with observability on and off")
+    # the metrics stream
+    recs = stream_records(stream)
+    names = {r.get("name") for r in recs}
+    need = {"train/step_time_ms", "train/tokens_per_sec",
+            "train/model_tflops", "train/mfu", "device/mem_mb",
+            "goodput/productive_step_s", "goodput/recompile_s",
+            "goodput/goodput_frac", "span_ms"}
+    if not need <= names:
+        raise SmokeFailure(f"metrics stream lacks {sorted(need - names)}")
+    mem = {r["labels"]["stat"] for r in recs if r["name"] == "device/mem_mb"}
+    if mem != {"current", "peak"}:
+        raise SmokeFailure(f"device/mem_mb stats {mem}")
+    kind = torch.cuda.get_device_name(0)
+    table_peak = peak_device_tflops(kind)
+    if not table_peak:
+        raise SmokeFailure(f"no peak TFLOP/s in the telemetry's table for "
+                           f"{kind!r}: MFU is not reported")
+    tps = {r["step"]: r["value"] for r in recs
+           if r["name"] == "train/tokens_per_sec" and r["step"] is not None}
+    mfu = {r["step"]: r["value"] for r in recs
+           if r["name"] == "train/mfu" and r["step"] is not None}
+    # the default window spans the run, so the gauge flushed after step k
+    # is the tokens of steps 1..k over the host time from the end of step
+    # 0 to the end of step k: the time of any run of steps follows
+    window = inspect.signature(TrainingTelemetry).parameters["window"]
+    if RAMP_ITERS > window.default:
+        raise SmokeFailure(f"{RAMP_ITERS} steps outrun the telemetry's "
+                           f"window of {window.default}")
+    cum = [QS * sum(RAMP_BATCHES[1:k + 1]) for k in range(RAMP_ITERS)]
+
+    def tele_s(a, b):  # the telemetry's seconds for steps a..b
+        return cum[b] / tps[b] - (cum[a - 1] / tps[a - 1] if a > 1 else 0.0)
+
+    def cuda_s(a, b):
+        return sum(on["step_ms"][a:b + 1]) / 1e3
+
+    last = RAMP_ITERS - 1
+    runs = list(zip(UNTRACED_FULL[::2], UNTRACED_FULL[1::2]))
+    tele_run = cum[last] / tps[last]
+    cuda_run = cuda_s(1, last)
+    tele_full = sum(tele_s(a, b) for a, b in runs)
+    cuda_full = sum(cuda_s(a, b) for a, b in runs)
+    full_tokens = QS * sum(RAMP_BATCHES[k] for k in UNTRACED_FULL)
+    tele_tps, cuda_tps = full_tokens / tele_full, full_tokens / cuda_full
+    log(f"  telemetry: peak {table_peak:.0f} TFLOP/s from the table for "
+        f"{kind!r}; steps 1-{last}: {tps[last]:.1f} tokens/s against "
+        f"{cum[last] / cuda_run:.1f} from CUDA events "
+        f"({100 * (cuda_run / tele_run - 1):+.2f}%); steps "
+        f"{list(UNTRACED_FULL)}: {tele_tps:.1f} against {cuda_tps:.1f} "
+        f"({100 * (tele_tps / cuda_tps - 1):+.2f}%), MFU "
+        f"{[round(100 * mfu[k], 2) for k in UNTRACED_FULL]}%")
+    for what, tele, cuda in ((f"steps 1-{last}", cum[last] / tele_run,
+                              cum[last] / cuda_run),
+                             (f"steps {list(UNTRACED_FULL)}", tele_tps,
+                              cuda_tps)):
+        if abs(tele / cuda - 1) > TOKENS_TOL:
+            raise SmokeFailure(f"telemetry tokens/s {tele:.1f} over {what} "
+                               f"is not within {TOKENS_TOL:.0%} of CUDA "
+                               f"events' {cuda:.1f}")
+    # the trace
+    t0 = time.perf_counter()
+    tr = load_trace(trace_dir)
+    att = attribute(tr)
+    parse_s = time.perf_counter() - t0
+    want_traced = {k: v * RAMP_CHUNKS * TRACE_ITERS for k, v in per_mb.items()}
+    found = {k: att.category_launches.get(k, 0) for k in per_mb}
+    log(f"  trace: {len(tr.events)} events read in {parse_s:.1f} s; steps "
+        f"{att.steps}; K1-K5 by kernel name {found}; launch counters over "
+        f"the window {on['traced_launches']} (want {want_traced})")
+    if att.steps != TRACE_ITERS:
+        raise SmokeFailure(f"trace attributes {att.steps} steps, want "
+                           f"{TRACE_ITERS}")
+    if not (found == on["traced_launches"] == want_traced):
+        raise SmokeFailure(f"trace kernel counts {found}, counters "
+                           f"{on['traced_launches']}, want {want_traced}")
+    wall_step = att.wall_ms / att.steps
+    window_step = on["trace_window_ms"] / TRACE_ITERS
+    ops_step = sum(att.category_launches.values()) / att.steps
+    log(f"  trace: device wall {wall_step:.2f} ms a step against "
+        f"{window_step:.2f} ms by CUDA events over the window "
+        f"({100 * (wall_step / window_step - 1):+.2f}%); busy "
+        f"{att.per_device_busy_ms / att.steps:.2f} ms, idle "
+        f"{100 * att.bubble_frac:.2f}% of the wall; {ops_step:.0f} device "
+        "ops a step")
+    if abs(wall_step / window_step - 1) > WALL_TOL:
+        raise SmokeFailure(f"trace wall {wall_step:.2f} ms a step is not "
+                           f"within {WALL_TOL:.0%} of {window_step:.2f}")
+    tool = {}
+    for e in tr.events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            cat = breakdown_category(str(e.get("name", "")))
+            tool[cat] = tool.get(cat, 0.0) + e["dur"] / 1e3 / att.steps
+    ours = {k: v / att.steps for k, v in att.categories_ms.items()}
+    for label, cats in (("trace_analysis", ours),
+                        ("torch_step_breakdown", tool)):
+        log(f"  categories by {label}, ms a step: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(cats.items(),
+                                              key=lambda kv: -kv[1])))
+    # observability's cost to the untraced batch-8 steps
+    a = sorted(off["step_ms"][k] for k in UNTRACED_FULL)
+    b = sorted(on["step_ms"][k] for k in UNTRACED_FULL)
+    med_a, med_b = (a[1] + a[2]) / 2, (b[1] + b[2]) / 2
+    within = abs(med_b / med_a - 1) <= OVERHEAD_TOL or a[0] <= med_b <= a[-1]
+    log(f"  step ms of steps {list(UNTRACED_FULL)}: off {a} (median "
+        f"{med_a:.2f}), on {b} (median {med_b:.2f}, "
+        f"{100 * (med_b / med_a - 1):+.2f}%)")
+    if not within:
+        raise SmokeFailure(f"median step {med_b:.2f} ms with observability "
+                           f"is not within {OVERHEAD_TOL:.0%} of {med_a:.2f} "
+                           "nor inside the off run's spread")
+    log(f"  peak memory off {off['peak_mem_gib']:.2f} GiB, on "
+        f"{on['peak_mem_gib']:.2f} GiB")
+    if max(off["peak_mem_gib"], on["peak_mem_gib"]) > MEM_LIMIT_GIB:
+        raise SmokeFailure(f"peak memory above {MEM_LIMIT_GIB} GiB")
+    summary = dict(
+        card=smi, model="qwen2.5-7b", layers=QWEN_LAYERS, seq=QS,
+        global_batch=RAMP_GBS, chunks=RAMP_CHUNKS, ramp=RAMP,
+        batch_sizes=RAMP_BATCHES, consumed_samples=on["consumed_samples"],
+        losses=on["losses"], step_ms_off=off["step_ms"],
+        step_ms_on=on["step_ms"], median_ms_off=med_a, median_ms_on=med_b,
+        telemetry_tokens_per_s=tele_tps, cuda_event_tokens_per_s=cuda_tps,
+        telemetry_tokens_per_s_run=tps[last],
+        cuda_event_tokens_per_s_run=cum[last] / cuda_run,
+        mfu={k: mfu[k] for k in UNTRACED_FULL}, peak_tflops=table_peak,
+        trace=dict(steps=att.steps, wall_ms_per_step=wall_step,
+                   window_ms_per_step=window_step,
+                   busy_ms_per_step=att.per_device_busy_ms / att.steps,
+                   idle_frac=att.bubble_frac, kernels=found,
+                   device_ops_per_step=ops_step,
+                   events=len(tr.events), parse_s=parse_s,
+                   categories_ms_per_step=ours,
+                   breakdown_tool_ms_per_step=tool),
+        peak_mem_gib_off=off["peak_mem_gib"],
+        peak_mem_gib_on=on["peak_mem_gib"], goodput=on["goodput"],
+        flight_dumps=on["flight_dumps"], wall_s_off=off["wall_s"],
+        wall_s_on=on["wall_s"], launches=on["launches"],
+        launches_per_step={k: v * RAMP_CHUNKS for k, v in per_mb.items()},
+        launches_per_microbatch=per_mb,
+        eval_launches={k: 0 for k in per_mb})
+    log("qwen ramp path: " + json.dumps(summary))
+    return summary
+
+
+def poll_healthz(port: int, proc, seen: list, scrapes: list):
+    """Poll ``/healthz`` (and ``/metrics`` once a second attempt runs)
+    until ``proc`` exits."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    while proc.poll() is None:
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                h = json.loads(r.read())
+            seen.append(h)
+            if h.get("supervisor_attempt") == 2 and not scrapes:
+                with urllib.request.urlopen(base + "/metrics",
+                                            timeout=5) as r:
+                    text = r.read().decode()
+                if "train_" in text:
+                    scrapes.append(text)
+        except OSError:
+            pass
+        time.sleep(0.2)
+
+
+def gpt2_supervised_obs(smi: str, tmp: str):
+    """Phase 13: GPT-2 small at full size under ``cli.supervise`` with the
+    endpoint and the recorder: a checkpoint every 2 steps, a real SIGTERM at
+    step 3, exit 18, a relaunch that resumes and finishes 6 steps."""
+    import threading
+
+    from hetu_galvatron_tpu_torch.cli.summarize import summarize
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+
+    over = [GPT2_YAML, "parallel.global_train_batch_size=8",
+            "parallel.mixed_precision=bf16",
+            f"train.train_iters={DRILL_STEPS}"]
+    root = os.path.join(tmp, "obs_gpt2")
+    os.makedirs(root)
+    ref_path = os.path.join(root, "reference.jsonl")
+    rc, text, _ = run_child("hetu_galvatron_tpu_torch.cli.train_dist",
+                            over + [f"extra.summary_path={ref_path}"], root,
+                            "gpt2_obs_reference")
+    ref = summaries(ref_path)
+    if rc != 0 or len(ref) != 1:
+        raise SmokeFailure(f"gpt2 reference run: exit {rc}:\n{text[-3000:]}")
+    ref = ref[0]
+    flight = os.path.join(root, "flight")
+    kids_path = os.path.join(root, "children.jsonl")
+    cmd = [sys.executable, "-m", "hetu_galvatron_tpu_torch.cli.supervise",
+           *over, f"ckpt.save={os.path.join(root, 'ck')}",
+           "ckpt.save_interval=2", "supervisor.auto_restart=true",
+           "supervisor.mode=process", "supervisor.metrics_port=0",
+           "supervisor.backoff_base_s=0", "supervisor.poll_interval_s=0.2",
+           "observability.enabled=true", "observability.flush_interval=1",
+           f"observability.metrics_path={os.path.join(root, 'm.jsonl')}",
+           f"observability.flight_dir={flight}",
+           "rerun.inject_kind=preempt", f"rerun.inject_at_iter={OBS_PREEMPT_AT}",
+           f"extra.summary_path={kids_path}"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(DRILL_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    lines, seen, scrapes, poller = [], [], [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            m = re.search(r"/healthz and /metrics on http://127\.0\.0\.1:"
+                          r"(\d+)", line)
+            if m and poller is None:
+                port = int(m.group(1))
+                poller = threading.Thread(
+                    target=poll_healthz, args=(port, proc, seen, scrapes),
+                    daemon=True)
+                poller.start()
+        rc = proc.wait(timeout=DRILL_TIMEOUT_S)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if poller is not None:
+        poller.join(timeout=10)
+    text = "".join(lines)
+    with open(os.path.join(root, "supervise.log"), "w") as f:
+        f.write(text)
+    log(f"  supervise: exit {rc} in {wall:.1f} s; {len(seen)} /healthz "
+        "answers")
+    if rc != 0 or poller is None:
+        raise SmokeFailure(f"supervise exit {rc}, endpoint "
+                           f"{'seen' if poller else 'never printed'}:\n"
+                           f"{text[-3000:]}")
+    attempts = [h.get("supervisor_attempt") for h in seen]
+    codes = [h.get("last_child_exit_code") for h in seen]
+    log(f"  /healthz: attempts {sorted(set(attempts))}, last child exit "
+        f"codes {sorted(set(c for c in codes if c is not None))}")
+    if 2 not in attempts or 18 not in codes:
+        raise SmokeFailure(f"/healthz never showed attempt 2 and exit 18: "
+                           f"{seen[-3:]}")
+    if not scrapes:
+        raise SmokeFailure("no /metrics scrape with train_* series during "
+                           "the second attempt")
+    prom = [l for l in scrapes[0].splitlines()
+            if l and not l.startswith("#")]
+    bad = [l for l in prom if not PROM_LINE.match(l)]
+    series = {l.split("{")[0].split(" ")[0] for l in prom}
+    sup = sorted(n for n in series if n.startswith("supervisor_"))
+    train = sorted(n for n in series if n.startswith("train_"))
+    log(f"  /metrics: {len(prom)} samples, {len(sup)} supervisor_* and "
+        f"{len(train)} train_* series, e.g. {sup[:3]} {train[:3]}")
+    if bad or not sup or not train:
+        raise SmokeFailure(f"/metrics: unparsed lines {bad[:3]}, supervisor "
+                           f"{sup}, train {train}")
+    kids = summaries(kids_path)
+    if [k["exit_code"] for k in kids] != [18, 0]:
+        raise SmokeFailure(f"children exits {[k['exit_code'] for k in kids]}"
+                           ", want [18, 0]")
+    stitched = kids[0]["losses"] + kids[1]["losses"]
+    log(f"  [{smi}] reference losses {ref['losses']}")
+    log(f"  [{smi}] stitched losses  {stitched}")
+    if stitched != ref["losses"]:
+        raise SmokeFailure("stitched losses differ from the uninterrupted "
+                           "run's")
+    if kids[1]["param_sha256"] != ref["param_sha256"]:
+        raise SmokeFailure("final parameters differ from the uninterrupted "
+                           "run's")
+    n_layers = load_config(over[0], over[1:]).model.num_hidden_layers
+    per_step = {k: n_layers if k in FLASH else 0 for k in KERNELS}
+    first = OBS_PREEMPT_AT + 1
+    for kid, steps in ((kids[0], first), (kids[1], DRILL_STEPS - first)):
+        check_drill_child("gpt2 observability drill", kid,
+                          want_launches(per_step, per_step, steps, 0))
+    gp = kids[1]["goodput"]
+    tot = gp["totals"]
+    log(f"  goodput: {json.dumps(gp)}; sum {sum(tot.values()):.2f} s of the "
+        f"supervisor's {wall:.2f} s")
+    cats = ("productive_step", "recompile", "checkpoint_save",
+            "resume_replay")
+    if gp["restarts_survived"] != 1 or not all(tot[c] > 0 for c in cats) \
+            or sum(tot.values()) > wall:
+        raise SmokeFailure(f"goodput {gp} (want 1 restart, {cats} above 0, "
+                           f"a sum within {wall:.2f} s)")
+    dumps = sorted(glob.glob(os.path.join(flight, "flight_*.json")))
+    reasons = []
+    with open(os.devnull, "w") as null:
+        for path in dumps:
+            head = summarize(path, out=null)
+            reasons.append(head.get("flight_reason"))
+    log(f"  flight dumps: {[os.path.basename(p) for p in dumps]}, reasons "
+        f"{reasons}")
+    if sorted(reasons) != ["child_exit_18", "signal:SIGTERM"]:
+        raise SmokeFailure(f"flight dump reasons {reasons}, want "
+                           "signal:SIGTERM and child_exit_18")
+    result = dict(
+        card=smi, model="gpt2-small", steps=DRILL_STEPS,
+        preempt_at=OBS_PREEMPT_AT, supervisor_wall_s=wall,
+        healthz_answers=len(seen), metrics_series=dict(
+            supervisor=sup, train=train), goodput=gp,
+        flight_reasons=reasons, losses=stitched,
+        launches={k: kids[0]["launches"][k] + kids[1]["launches"][k]
+                  for k in KERNELS},
+        launches_per_step=per_step, eval_launches={k: 0 for k in KERNELS})
+    log("gpt2 supervised observability: " + json.dumps(result))
+    return result
+
+
+def obs_paths(smi: str, qwen_prefix: str, tmp: str):
+    """Phases 12-13, each with the launch counters reset before its
+    runs."""
+    import torch
+
+    phase("phase 12: main path of slice 8 (train_dist, Qwen2.5-7B widths, "
+          f"{QWEN_LAYERS} layers, batch-size ramp, observability off and on)")
+    ramp = qwen_ramp_path(smi, qwen_prefix, tmp)
+    torch.cuda.empty_cache()
+    phase("phase 13: main path of slice 8 (cli.supervise, GPT-2 small, "
+          "/healthz and /metrics, flight recorder, goodput)")
+    sup = gpt2_supervised_obs(smi, tmp)
+    return {"ramp": ramp, "gpt2": sup}
+
+
 def log_times(tag, times, lib, bnd):
     for k, (kms, pms) in times.items():
         log(f"  {tag}: {k:<16} kernel {kms:.3f} ms  plain {pms:.3f} ms  "
@@ -2025,6 +2522,7 @@ def main() -> int:
     if any(st or ld for _, _, st, ld in ptxas):
         raise SmokeFailure("a kernel spills registers (ptxas above)")
     zoo_only = sys.argv[1:] == ["--zoo-only"]
+    obs_only = sys.argv[1:] == ["--obs-only"]
     if sys.argv[1:] == ["--lifecycle-only"]:
         # phase 8 alone, over its own copy of phase 6's corpus
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2157,6 +2655,20 @@ def main() -> int:
     for name_k, recs in zoo_k["ce_checks"].items():
         checks[name_k] += recs
     torch.cuda.empty_cache()
+    if obs_only:
+        qwen_prefix = write_qwen_corpus(tmp)[0]
+        obs = obs_paths(smi, qwen_prefix, tmp)
+        tmpdir.cleanup()
+        rows = kernel_rows(checks, zoo_k, None,
+                           obs_blocks(checks, obs, qwen_flash, ce,
+                                      (times, lib, bnd)))
+        log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+        log(json.dumps({"kernels": rows}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if zoo_only:
         zoo = zoo_paths(peak_flops, llama_prefix, llama_stats)
         tmpdir.cleanup()
@@ -2197,6 +2709,7 @@ def main() -> int:
         smi, os.path.join(tmp, "qwen_corpus"))
     torch.cuda.empty_cache()
     zoo = zoo_paths(peak_flops, llama_prefix, llama_stats)
+    obs = obs_paths(smi, os.path.join(tmp, "qwen_corpus"), tmp)
     tmpdir.cleanup()
 
     # one block per path that runs the kernel: its launches beside the
@@ -2255,6 +2768,9 @@ def main() -> int:
                 max_err(checks, k, "qwen fp32"),
                 f"T={QT} V={QV} fp32 logits (the path's dtype)")
         earlier[k] = paths
+    for k, blocks in obs_blocks(checks, obs, qwen_flash, ce,
+                                (times, lib, bnd)).items():
+        earlier[k].update(blocks)
     rows = kernel_rows(checks, zoo_k, zoo, earlier)
     rows[0]["autograd_checks"] = auto
     rows[3]["autograd_checks"] = ce["zloss"]
@@ -2310,19 +2826,58 @@ def zoo_paths(peak_flops, llama_prefix, llama_stats):
 LLAMA_PATH = f"llama3.1-70b-{LLAMA_LAYERS}-layers"
 
 
+def obs_blocks(checks, obs, qwen_flash, ce, gpt2_times):
+    """Phases 12-13's blocks per kernel: the ramp path's launches (run b,
+    observability on) beside the times at the Qwen shape, and the
+    supervised GPT-2 drill's beside phase 3's times at GPT-2's shape
+    (K1-K3; ``gpt2_times`` is ``(times, lib, bnd)``)."""
+    times, lib, bnd = gpt2_times
+    out = {}
+    for k in KERNELS:
+        if k in FLASH:
+            timing = qwen_flash["timing"][k]
+            err = max_err(checks, k, timing["shape"], ("elementwise",))
+            shape = timing["shape"]
+        else:
+            timing = ce["timing"]["fp32"][k]
+            err = max_err(checks, k, "qwen fp32")
+            shape = f"T={QT} V={QV} fp32 logits (the path's dtype)"
+        block = path_block(k, obs["ramp"], timing, err, shape)
+        block["launches_per_microbatch"] = \
+            obs["ramp"]["launches_per_microbatch"][k]
+        out[k] = {RAMP_PATH: block}
+        if k in FLASH:
+            out[k][OBS_GPT2_PATH] = path_block(
+                k, obs["gpt2"], dict(ms=times[k][0], plain_ms=times[k][1],
+                                     library_ms=lib[k], **bnd[k]),
+                max_err(checks, k, "slice bf16", ("elementwise",)),
+                f"B={B} N=K={N} S={S} D={D} bf16 causal")
+    return out
+
+
 def kernel_rows(checks, zoo_k, zoo, earlier=None):
     """The kernels JSON line's rows: per kernel, one block per path that
-    ran it (``earlier``: the blocks of phases 5-8, absent under
-    ``--zoo-only``), the zoo paths' blocks at their shapes (T5's K1-K3
-    block at the decoder's causal self-attention, with all three of its
-    shapes under ``by_shape``); the row's own keys are those of this
-    slice's Llama path, the only one that runs every kernel at the
-    largest shapes."""
+    ran it (``earlier``: the blocks of phases 5-8 and 12-13, only 12-13
+    under ``--obs-only`` and none under ``--zoo-only``), the zoo paths'
+    blocks at their shapes (T5's K1-K3 block at the decoder's causal
+    self-attention, with all three of its shapes under ``by_shape``);
+    the row's own keys are those of slice 7's Llama path, the only one
+    that runs every kernel at the largest shapes, or under
+    ``--obs-only`` (``zoo`` None) those of phase 12's ramp path."""
     flash = zoo_k["flash"]
     rows = []
+    own = LLAMA_PATH if zoo is not None else RAMP_PATH
     for k, meta in KERNELS.items():
         paths = dict((earlier or {}).get(k, {}))
-        if k in FLASH:
+        if zoo is None:
+            tol = TOL_16 if k in FLASH else TOL_FP32
+            tol_rule = ("every element: |got - want| <= tol * (rms(want) + "
+                        "|want|); 1e-4 in fp32, 1e-3 absolute on lse"
+                        if k in FLASH else
+                        "gold bit-equal, lse within 1e-4 absolute, dlogits "
+                        "every element within tol * (rms(want) + |want|): "
+                        "1e-4 in fp32, 2e-2 in bf16/fp16")
+        elif k in FLASH:
             def fblock(run, key):
                 timing = flash[key]["timing"][k]
                 out = path_block(k, run, timing, max_err(
@@ -2357,7 +2912,7 @@ def kernel_rows(checks, zoo_k, zoo, earlier=None):
             tol = TOL_FP32
         row = dict(name=k, route=meta["route"], source=meta["source"],
                    replaces=meta["replaces"],
-                   library_call=meta["library_call"], **paths[LLAMA_PATH],
+                   library_call=meta["library_call"], **paths[own],
                    tol=tol, tol_rule=tol_rule, paths=paths)
         row["checks"] = checks[k]
         rows.append(row)

@@ -53,16 +53,26 @@ SIGKILLed. Set it above the time one save takes, or a preemption turns
 into a torn save (which resume then skips, losing the steps since the
 previous commit).
 
-Not ported yet, and refused by name by the flag check of
-``cli/train_dist.py``: the ``/healthz`` endpoint (``supervisor.metrics_port
->= 0``; ``ProcessSupervisor.health()`` gives its payload) and the metrics
-and flight-recorder streams of the observability slice.
+Observability (JAX :157-179): the supervisor appends ``supervisor``
+events to the SAME metrics JSONL the child writes (``JsonlSink`` appends
+are O_APPEND + single-``write`` atomic, so interleaving is safe), dumps a
+flight record per abnormal child exit when a flight dir is configured
+(``flight_supervisor_*.json``), and with ``supervisor.metrics_port >= 0``
+serves ``/healthz`` (attempt count, last child exit code, backoff state,
+last-commit age) and ``/metrics`` on the loopback address; port 0 binds
+an ephemeral port, printed as ``supervisor: /healthz and /metrics on
+http://127.0.0.1:<port>``. Port-only: ``/metrics`` also re-exports the
+last flushed value of every series the children wrote to the shared
+stream (``train/*``, ``goodput/*``, ...), which the supervisor's own
+registry cannot hold across the process boundary.
 """
 
 from __future__ import annotations
 
+import json
 import sys
-from typing import List, Optional, Sequence
+import threading
+from typing import Any, Dict, List, Optional, Sequence
 
 from hetu_galvatron_tpu_torch.runtime import ckpt_paths
 from hetu_galvatron_tpu_torch.runtime.supervisor import (
@@ -76,6 +86,70 @@ TRAIN_MODULE = "hetu_galvatron_tpu_torch.cli.train_dist"
 # dotted overrides win): the child must run exactly one attempt
 _CHILD_FORCED = ("supervisor.mode=inprocess",
                  "supervisor.auto_restart=false")
+
+
+class _Series:
+    """One series read back from the metrics stream, shaped like a
+    registry metric for ``prometheus_text``."""
+
+    def __init__(self, rec: Dict[str, Any]):
+        self.kind = rec["kind"]
+        self.name = str(rec.get("name", ""))
+        self.labels = dict(rec.get("labels") or {})
+        self.value = rec.get("value", 0.0)
+        self.count = rec.get("count", 0)
+        self.total = rec.get("mean", 0.0) * self.count
+        self._rec = rec
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {k: self._rec.get(k, 0.0)
+                for k in ("count", "mean", "min", "max", "p50", "p90",
+                          "p99")}
+
+
+class StreamMirror:
+    """What ``/metrics`` exposes: the supervisor's own registry, plus the
+    last record of every series in the shared metrics stream that the
+    registry does not hold itself (the children's). The stream is read
+    incrementally at each scrape; a torn last line waits for the next."""
+
+    def __init__(self, registry, path: str):
+        self._registry = registry
+        self._path = path
+        self._pos = 0
+        self._tail = b""
+        self._latest: Dict[tuple, Dict[str, Any]] = {}
+        self._lock = threading.Lock()
+
+    def _read(self) -> None:
+        try:
+            with open(self._path, "rb") as f:
+                f.seek(self._pos)
+                chunk = f.read()
+        except OSError:
+            return
+        self._pos += len(chunk)
+        lines = (self._tail + chunk).split(b"\n")
+        self._tail = lines.pop()
+        for line in lines:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and rec.get("kind") in (
+                    "counter", "gauge", "histogram"):
+                key = (rec["kind"], rec.get("name"),
+                       json.dumps(rec.get("labels") or {}, sort_keys=True))
+                self._latest[key] = rec
+
+    def metrics(self) -> List[Any]:
+        with self._lock:
+            self._read()
+            own = self._registry.metrics()
+            held = {(m.kind, m.name, json.dumps(m.labels, sort_keys=True))
+                    for m in own}
+            return own + [_Series(r) for k, r in self._latest.items()
+                          if k not in held]
 
 
 def child_argv(base_argv: Sequence[str], args,
@@ -97,8 +171,35 @@ def child_argv(base_argv: Sequence[str], args,
 
 def run_supervised(args, base_argv: Sequence[str]) -> int:
     """Supervise ``train_dist`` children built from ``base_argv`` until
-    the run completes, turns terminal, or the budget is spent."""
+    the run completes, turns terminal, or the budget is spent. Torch-free:
+    this process must not touch the card its children need."""
+    from hetu_galvatron_tpu_torch.observability.recorder import flight_dir_of
+    from hetu_galvatron_tpu_torch.observability.registry import (
+        get_registry,
+        metrics_path_of,
+    )
+
     sup = args.supervisor
+    obs = args.observability
+    # supervisor events land in the children's stream, dumps beside theirs
+    metrics_path = (metrics_path_of(args)
+                    if obs.enabled or obs.metrics_path else None)
+    flight_dir = (flight_dir_of(args)
+                  if obs.enabled or obs.flight_dir is not None else None)
+    registry = None
+    if metrics_path:
+        from hetu_galvatron_tpu_torch.observability.registry import configure
+
+        registry = configure(jsonl_path=metrics_path)
+    recorder = None
+    if flight_dir:
+        from hetu_galvatron_tpu_torch.observability.recorder import (
+            FlightRecorder,
+        )
+
+        recorder = FlightRecorder(registry=registry, out_dir=flight_dir,
+                                  prefix="flight_supervisor",
+                                  capacity=args.observability.flight_events)
     supervisor = ProcessSupervisor(
         lambda state: child_argv(base_argv, args, state),
         save_dir=args.ckpt.save or None,
@@ -110,8 +211,35 @@ def run_supervised(args, base_argv: Sequence[str]) -> int:
         restart_on_error=sup.restart_on_error,
         term_grace_s=sup.term_grace_s,
         poll_interval=sup.poll_interval_s,
+        registry=registry,
+        recorder=recorder,
     )
-    return supervisor.run()
+
+    server = None
+    if sup.metrics_port >= 0:
+        from hetu_galvatron_tpu_torch.observability.prometheus import (
+            MetricsHTTPServer,
+        )
+
+        own = registry if registry is not None else get_registry()
+        exposed = StreamMirror(own, metrics_path) if metrics_path else own
+        server = MetricsHTTPServer(registry=exposed, port=sup.metrics_port,
+                                   health_fn=supervisor.health)
+        port = server.start()
+        print(f"supervisor: /healthz and /metrics on "
+              f"http://127.0.0.1:{port}", flush=True)
+    try:
+        rc = supervisor.run()
+    finally:
+        if server is not None:
+            server.stop()
+        if registry is not None:
+            try:
+                registry.close()
+            except Exception as e:  # noqa: BLE001 — exit code is decided
+                print(f"supervisor: warning: metrics close failed "
+                      f"({type(e).__name__}: {e})", flush=True)
+    return rc
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -155,6 +155,9 @@ class TrainArgs:
     eval_interval: int = 0
     eval_iters: int = 0
     rampup_batch_size: Optional[List[int]] = None
+    # round a ramp step down to a multiple of the micro size instead of
+    # raising (runtime/microbatches.py)
+    decrease_batch_size_if_needed: bool = False
 
     CHOICES: ClassVar[Dict[str, Tuple]] = {
         "lr_decay_style": ("constant", "linear", "cosine",
@@ -204,7 +207,10 @@ class DataArgs:
 class ProfileArgs:
     profile: int = 0
     profile_warmup: int = 2
+    # non-empty: capture a torch.profiler trace of iterations
+    # [profile_warmup, profile_warmup + trace_iters) into this directory
     trace_dir: str = ""
+    trace_iters: int = 3
 
 
 @dataclass
@@ -217,8 +223,33 @@ class LoggingArgs:
 
 @dataclass
 class ObservabilityArgs:
+    """JAX ``core/args_schema.py:370``: the telemetry stream, the flight
+    recorder and the plan audit. The launcher refuses by name what this
+    port does not run: ``tensorboard``, the audit over a captured trace
+    (``audit`` with ``profile.trace_dir``), ``audit_hardware_config`` and
+    ``calibration_dir``; the ``calibration_*`` and ``regret_threshold``
+    knobs act only under ``calibration_dir``."""
+
     enabled: bool = False
+    # JSONL metrics file; None derives <logging.tensorboard_dir or .>/
+    # metrics.jsonl at train time
+    metrics_path: Optional[str] = None
+    tensorboard: bool = False
+    flush_interval: int = 16  # steps between registry flushes
+    # per-card peak TFLOP/s for MFU when the device-name table
+    # (observability/telemetry.py) does not know the card; 0 = the table
+    peak_tflops: float = 0.0
+    audit: bool = True
+    audit_hardware_config: Optional[str] = None
+    # flight_<ts>.json dumps on crash / trapped signal / rerun halt; None
+    # derives the metrics stream's directory when enabled
     flight_dir: Optional[str] = None
+    flight_events: int = 256
+    calibration_dir: Optional[str] = None
+    calibration_min_points: int = 4
+    calibration_window_days: float = 0.0
+    calibration_max_points: int = 0
+    regret_threshold: float = 0.05
 
 
 @dataclass
@@ -306,19 +337,14 @@ JAX_ONLY_KEYS: Dict[str, frozenset] = {
         "hier_bucket_mb", "dp_schedule"}),
     "pipeline": frozenset({"schedule_impl"}),
     "tp_overlap": frozenset(),
-    "train": frozenset({"check_loss", "deterministic_mode",
-                        "decrease_batch_size_if_needed"}),
+    "train": frozenset({"check_loss", "deterministic_mode"}),
     "ckpt": frozenset(),
     "data": frozenset({"tokenizer_type", "tokenizer_path", "num_workers"}),
     "profile": frozenset({"profile_type", "profile_forward",
                           "save_profiled_memory", "profiler_dir",
-                          "profile_iters", "trace_iters"}),
+                          "profile_iters"}),
     "logging": frozenset(),
-    "observability": frozenset({
-        "metrics_path", "tensorboard", "flush_interval", "peak_tflops",
-        "audit", "audit_hardware_config", "flight_events", "calibration_dir",
-        "calibration_min_points", "calibration_window_days",
-        "calibration_max_points", "regret_threshold"}),
+    "observability": frozenset(),
     "serving": frozenset({
         "max_batch_size", "kv_block_size", "num_kv_blocks", "max_seq_len",
         "max_new_tokens", "prefill_flops_budget_g", "max_prefill_tokens",

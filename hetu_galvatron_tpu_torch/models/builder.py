@@ -230,9 +230,14 @@ def param_count(params: Params) -> int:
 
 def model_flops_per_token(cfg: ModelArgs,
                           seq_len: Optional[int] = None) -> float:
-    """Approximate training FLOPs per token (6N + attention), the MFU
-    numerator of the JAX package's bench and profilers. As there, an MoE
-    layer counts one dense MLP of ``ffn_dim``, not its top-k experts."""
+    """Approximate training FLOPs per token (6N + attention): JAX
+    ``models/builder.py::model_flops_per_token``, the MFU numerator of
+    ``bench.py``. As there, an MoE layer counts one dense MLP of
+    ``ffn_dim``, not its top-k experts, and a t5 model its decoder stack
+    alone. The telemetry's MFU counts as JAX's cost model does
+    (``observability.telemetry.model_flops_per_token``: active experts,
+    the router, the t5 encoder), 1.69x this for Mixtral and 1.94x for
+    T5-3B."""
     s = seq_len or cfg.seq_length
     h, f, v = cfg.hidden_size, cfg.ffn_dim, cfg.padded_vocab_size
     nq, nkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim

@@ -2,11 +2,13 @@
 
 Port of ``hetu_galvatron_tpu/observability/registry.py`` (``Counter`` :33,
 ``Gauge`` :50, ``Histogram`` :67, ``MetricsRegistry`` :118,
-``get_registry`` :201, ``set_registry`` :207), in memory only: the
-checkpoint, supervisor, rerun and chaos modules count into it, and a
-caller reads the counts back. Sinks (the JSONL and TensorBoard writers,
-``configure`` :213) belong to the observability slice and raise by name.
-Design constraints, in order:
+``get_registry`` :201, ``set_registry`` :207, ``configure`` :213) and
+the stream's path rule (:func:`metrics_path_of`): the
+checkpoint, supervisor, rerun and chaos modules, the profiler and the
+telemetry count into it, and its snapshots and events go to the sinks of
+``sinks.py``. ``configure`` installs a registry with the JSONL sink; the
+TensorBoard sink is not ported (the card's machine has no writer
+package) and raises by name. Design constraints, in order:
 
 1. **Hot-path cost is a dict lookup + a float op.** Metric handles are
    cached per (name, labels) so instrumented code can call
@@ -23,6 +25,7 @@ Design constraints, in order:
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -120,18 +123,21 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Holds metric instances. ``event``, ``flush`` and ``close`` are the
-    JAX registry's sink calls: with no sinks (the port has none yet) they
-    write nothing."""
+    """Holds metric instances and routes snapshots/events to sinks."""
 
     def __init__(self, sinks: Iterable[Any] = ()):
-        if list(sinks):
-            _no_sinks()
+        self._sinks: List[Any] = list(sinks)
         self._metrics: Dict[Tuple[str, str, LabelKey], Any] = {}
         self._lock = threading.Lock()
 
+    # -- sinks --------------------------------------------------------------
+
     def add_sink(self, sink: Any) -> None:
-        _no_sinks()
+        self._sinks.append(sink)
+
+    @property
+    def sinks(self) -> List[Any]:
+        return list(self._sinks)
 
     # -- metric handles -----------------------------------------------------
 
@@ -159,21 +165,36 @@ class MetricsRegistry:
     def metrics(self) -> List[Any]:
         return list(self._metrics.values())
 
+    # -- output -------------------------------------------------------------
+
     def event(self, name: str, data: Optional[Dict[str, Any]] = None,
               step: Optional[int] = None) -> None:
-        """A one-off record for the sinks; none exist yet."""
+        """One-off structured record, written through immediately (sinks
+        buffer internally) — used for span records and supervisor events."""
+        rec = {"t": time.time(), "kind": "event", "name": name,
+               "data": data or {}}
+        if step is not None:
+            rec["step"] = step
+        for s in self._sinks:
+            s.write(rec)
 
     def flush(self, step: Optional[int] = None) -> None:
-        """Snapshot every metric into the sinks; none exist yet."""
+        """Snapshot every metric into each sink, then flush the sinks."""
+        now = time.time()
+        for m in self.metrics():
+            rec = {"t": now, "kind": m.kind, "name": m.name, "step": step}
+            if m.labels:
+                rec["labels"] = m.labels
+            rec.update(m.snapshot())
+            for s in self._sinks:
+                s.write(rec)
+        for s in self._sinks:
+            s.flush()
 
     def close(self, step: Optional[int] = None) -> None:
         self.flush(step)
-
-
-def _no_sinks() -> None:
-    raise NotImplementedError(
-        "metrics sinks (JSONL, TensorBoard) are not ported to "
-        "hetu_galvatron_tpu_torch yet; the registry counts in memory only")
+        for s in self._sinks:
+            s.close()
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +218,27 @@ def set_registry(reg: MetricsRegistry) -> MetricsRegistry:
 
 def configure(jsonl_path: Optional[str] = None,
               tensorboard_dir: Optional[str] = None) -> MetricsRegistry:
-    """The JAX package installs a registry with JSONL / TensorBoard sinks
-    here; the sinks are not ported yet."""
-    _no_sinks()
+    """Install a fresh default registry with the JSONL sink attached. A
+    TensorBoard directory raises: its writer packages (tensorboardX,
+    ``torch.utils.tensorboard``'s) are absent from the card's machine."""
+    from hetu_galvatron_tpu_torch.observability.sinks import JsonlSink
+
+    if tensorboard_dir:
+        raise NotImplementedError(
+            "the TensorBoard sink (observability.tensorboard) is not ported "
+            "to hetu_galvatron_tpu_torch: use the JSONL metrics stream")
+    sinks: List[Any] = []
+    if jsonl_path:
+        sinks.append(JsonlSink(jsonl_path))
+    return set_registry(MetricsRegistry(sinks))
+
+
+def metrics_path_of(args) -> str:
+    """The metrics stream of a run's ``CoreArgs``:
+    ``observability.metrics_path``, else
+    ``<logging.tensorboard_dir or .>/metrics.jsonl`` (the one derivation
+    the telemetry, the supervisor and the flight recorder share)."""
+    import os
+
+    return args.observability.metrics_path or os.path.join(
+        args.logging.tensorboard_dir or ".", "metrics.jsonl")

@@ -940,13 +940,18 @@ class CheckpointCadence:
     the wall-clock cadence (``ckpt.interval_s``) has elapsed.
     ``save(step, ...)`` goes through the :class:`AsyncCheckpointer`
     snapshot path when ``ckpt.snapshot_async`` is set, else through
-    :func:`save_checkpoint` (on a thread with ``ckpt.async_save``)."""
+    :func:`save_checkpoint` (on a thread with ``ckpt.async_save``).
+    With a ``goodput`` tracker (``observability/goodput.py``) the save
+    books its stall to ``checkpoint_save``: the snapshot's dispatch stall
+    for async snapshots (the write overlaps training; the caller books the
+    final drain), the whole call otherwise (JAX :838-851)."""
 
-    def __init__(self, ck, *, hpc=None, log: Log = _print,
+    def __init__(self, ck, *, hpc=None, goodput=None, log: Log = _print,
                  hooks: Optional[Dict[str, Callable[..., Any]]] = None,
                  clock: Callable[[], float] = time.monotonic):
         self.ck = ck
         self.hpc = hpc
+        self.goodput = goodput
         self.hooks = dict(hooks or {})
         self._log = log
         self._clock = clock
@@ -972,13 +977,21 @@ class CheckpointCadence:
              *, train_state: Optional[Dict[str, Any]] = None) -> None:
         self._last_save_t = self._clock()
         if self.async_ckptr is not None:
-            self.async_ckptr.snapshot(step, params, opt_state,
-                                      train_state=train_state)
+            stall_ms = self.async_ckptr.snapshot(
+                step, params, opt_state, train_state=train_state)
+            if self.goodput is not None:
+                self.goodput.add("checkpoint_save", stall_ms / 1e3)
             return
-        save_checkpoint(self.ck.save, step, params, opt_state, hpc=self.hpc,
-                        async_save=self.ck.async_save,
-                        train_state=train_state,
-                        keep_last=self.ck.keep_last, hooks=self.hooks)
+        t0 = time.perf_counter()
+        try:
+            save_checkpoint(self.ck.save, step, params, opt_state,
+                            hpc=self.hpc, async_save=self.ck.async_save,
+                            train_state=train_state,
+                            keep_last=self.ck.keep_last, hooks=self.hooks)
+        finally:
+            if self.goodput is not None:
+                self.goodput.add("checkpoint_save",
+                                 time.perf_counter() - t0)
 
     def drain(self) -> None:
         """Exit/preempt barrier: nothing in flight may outlive (or race)

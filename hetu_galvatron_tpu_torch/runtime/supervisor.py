@@ -5,9 +5,9 @@ and 130, ``RESTARTABLE_EXIT_CODES``, ``PreemptionGuard`` :83,
 ``run_with_restarts`` :184, ``SupervisorState`` :304 and
 ``ProcessSupervisor`` :337 (signal forwarding with the ``term_grace_s``
 escalation, the atomic state file, the restart budget that progress
-resets, the ``RESUME_PIN`` written before each relaunch, ``health()``).
-The flight recorder the JAX classes take belongs to the observability
-slice and is not ported.
+resets, the ``RESUME_PIN`` written before each relaunch, ``health()``,
+and the flight-recorder dumps: ``signal:<name>`` at the guard's
+step-boundary check, ``child_exit_<code>`` per child death).
 
 * :class:`PreemptionGuard` — a SIGTERM/SIGINT handler that converts the
   kill signal into a *checkpoint-and-exit request* the train loop reads
@@ -98,12 +98,17 @@ class PreemptionGuard:
 
     def __init__(self, signals: Iterable[int] = (signal.SIGTERM,
                                                  signal.SIGINT),
-                 *, enabled: bool = True, registry=None):
+                 *, enabled: bool = True, registry=None, recorder=None):
         self.signals = tuple(signals)
         self.enabled = enabled
         self._requested = threading.Event()
         self._previous = {}
         self._registry = registry
+        # optional observability.recorder.FlightRecorder: the first
+        # trapped signal dumps a postmortem (from the main thread, at the
+        # boundary check — never inside the async handler); dump() never
+        # raises, so the checkpoint-and-exit path is unaffected
+        self.recorder = recorder
         self.installed = False
         self.signum: Optional[int] = None  # first signal that fired
         self._counted = False
@@ -144,6 +149,8 @@ class PreemptionGuard:
                 name = str(self.signum)
             _registry(self._registry).counter(
                 "supervisor/preemption_signals", sig=name).inc()
+            if self.recorder is not None:
+                self.recorder.dump(f"signal:{name}")
         return self._requested.is_set()
 
     def exit_code(self) -> int:
@@ -386,6 +393,7 @@ class ProcessSupervisor:
         sleep: Optional[Callable[[float], None]] = None,
         rng: Optional[random.Random] = None,
         registry=None,
+        recorder=None,
         popen: Callable[..., Any] = subprocess.Popen,
         log: Callable[[str], None] = lambda m: print(m, flush=True),
     ):
@@ -407,6 +415,8 @@ class ProcessSupervisor:
         self._popen = popen
         self._log = log
         self._reg = _registry(registry)
+        # optional FlightRecorder: one postmortem per abnormal child exit
+        self.recorder = recorder
         self._sleep = sleep if sleep is not None else _default_sleep
         self.state = SupervisorState.load(self.state_file)
         self._child = None
@@ -642,6 +652,12 @@ class ProcessSupervisor:
                 self._emit("child_exit", code=code, progressed=progressed,
                            rpo_s=self._rpo_s(),
                            escalated=self.escalated)
+                if self.recorder is not None and code != 0:
+                    self.recorder.note("child_exit", code=code,
+                                       attempt=st.attempt,
+                                       commit_step=st.last_commit_step,
+                                       rpo_s=self._rpo_s())
+                    self.recorder.dump(f"child_exit_{code}")
                 if self._stop_signum is not None:
                     # the supervisor itself was told to stop: never
                     # relaunch; keep the pin (a later supervise resumes)

@@ -1,7 +1,8 @@
 """Single-device training step: loss, microbatched gradients, AdamW update.
 
 Counterpart of ``hetu_galvatron_tpu/runtime/trainer.py`` (``make_loss_fn``,
-``microbatch_weights``, ``make_train_step``). ``chunks`` splits the global
+``microbatch_weights``, ``make_train_step``, ``train_loop`` :238,
+``make_telemetry`` :365). ``chunks`` splits the global
 batch into microbatches whose fp32 gradients accumulate weighted by each
 microbatch's share of valid tokens, so a chunked step equals the unchunked
 one even under a non-uniform loss mask. The step runs eagerly: PyTorch has
@@ -9,7 +10,10 @@ no counterpart of the jitted scan, and none is needed here.
 
 ``make_forward_backward`` is the step's first half (loss, gradients,
 norm) and leaves the parameters untouched; ``make_train_step`` adds the
-in-place AdamW update.
+in-place AdamW update. ``train_loop`` is the minimal host-side loop
+around a step (hooks, preemption at a step boundary, goodput, cadence
+saves, an owned telemetry); ``cli/train_dist.py`` runs its own loop with
+the fault lifecycle on top.
 
 With ``aux_stats`` the loss function returns ``(loss, stats)`` (the MoE
 layers' router statistics by ``layer{i}``) and the stats come back in
@@ -21,11 +25,13 @@ Not ported yet, and raising: the hierarchical dp reduction (``hier``).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from hetu_galvatron_tpu_torch.core.args_schema import ModelArgs
+from hetu_galvatron_tpu_torch.core.args_schema import CoreArgs, ModelArgs
 from hetu_galvatron_tpu_torch.models.builder import causal_lm_loss, named_leaves
 from hetu_galvatron_tpu_torch.models.modules import split_rng
 from hetu_galvatron_tpu_torch.runtime.optimizer import AdamW, global_grad_norm
@@ -170,3 +176,159 @@ def make_train_step(loss_fn: Callable, tx: AdamW, *, chunks: int = 1,
         return params, opt_state, metrics
 
     return step
+
+
+def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A numpy batch as tensors on ``device``; int32 ids become int64
+    embedding / gather indices."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if t.dtype == torch.int32:
+            t = t.long()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def train_loop(
+    args: CoreArgs,
+    params: Any,
+    data_iter,
+    *,
+    train_step: Optional[Callable] = None,
+    tx: Optional[AdamW] = None,
+    device_put: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None,
+    hooks: Tuple[Callable, ...] = (),
+    telemetry: Optional[Any] = None,
+    preemption: Optional[Any] = None,
+    goodput: Optional[Any] = None,
+    checkpoint: Optional[Any] = None,
+) -> Tuple[Any, Any, list]:
+    """Host-side iteration loop: fetch a batch, run the step, invoke the
+    hooks. Returns the final ``(params, opt_state, losses)``; parameters
+    are updated in place.
+
+    ``hooks`` are ``h(it, metrics)`` callables invoked after every step
+    with the step's metrics, still tensors on the device — hooks must not
+    force a device sync. ``preemption`` is an optional object with a
+    ``requested() -> bool`` method (``runtime.supervisor.PreemptionGuard``)
+    checked at every step boundary: once true the loop stops cleanly after
+    the in-flight step. ``telemetry`` is an optional
+    ``observability.telemetry.TrainingTelemetry`` appended to the hooks;
+    it is final-flushed when the loop exits (even on error) and left open
+    for the caller. When ``args.observability.enabled`` and no instance is
+    passed, one is built from the args (:func:`make_telemetry`) and closed
+    with the loop. ``goodput`` is an optional
+    ``observability.goodput.GoodputTracker``: each iteration's host wall
+    is booked as ``productive_step``, the first as ``recompile``.
+    ``checkpoint`` is an optional ``runtime.checkpoint.CheckpointCadence``:
+    when due, the post-update state is saved through it, and any in-flight
+    write is drained when the loop exits — even on error. The step and
+    the fetch run inside the ``train/step`` and ``train/fetch`` spans.
+
+    Without ``train_step`` the loop builds the plain step of
+    ``args.model`` at ``args.parallel.mixed_precision`` with
+    ``max(args.parallel.chunks, 1)`` microbatches, as JAX does; without
+    ``device_put`` batches go to the parameters' device."""
+    from hetu_galvatron_tpu_torch.models.modules import compute_dtype_of
+    from hetu_galvatron_tpu_torch.observability.tracing import span
+    from hetu_galvatron_tpu_torch.runtime.optimizer import make_optimizer
+
+    owns_telemetry = telemetry is None and args.observability.enabled
+    if owns_telemetry:
+        telemetry = make_telemetry(args)
+
+    tx = tx or make_optimizer(args.train)
+    if train_step is None:
+        loss_fn = make_loss_fn(
+            args.model,
+            compute_dtype=compute_dtype_of(args.parallel.mixed_precision))
+        train_step = make_train_step(loss_fn, tx,
+                                     chunks=max(args.parallel.chunks, 1))
+    names, leaves = zip(*named_leaves(params))
+    opt_state = tx.init(list(leaves), list(names))
+    device_losses = []
+    device = next(t for _, t in named_leaves(params)).device
+    put = device_put or (lambda b: to_device(b, device))
+    use_dropout = (args.model.hidden_dropout > 0.0
+                   or args.model.attention_dropout > 0.0)
+    all_hooks = hooks + ((telemetry,) if telemetry is not None else ())
+    try:
+        for it in range(args.train.train_iters):
+            it_t0 = time.perf_counter()
+            with span("train/fetch"):
+                batch = put(next(data_iter))
+            if use_dropout:
+                # the launcher's per-iteration stream, from (seed, it)
+                dev = next(iter(batch.values())).device
+                batch["dropout_rng"] = torch.Generator(
+                    device=dev).manual_seed(
+                        args.train.seed * 1_000_003 + it)
+            with span("train/step"):
+                params, opt_state, metrics = train_step(
+                    params, opt_state, batch)
+            # keep losses on the device: a float() here would wait for
+            # the step and serialize host batch prep against the card
+            device_losses.append(metrics["loss"])
+            for h in all_hooks:
+                h(it, metrics)
+            if goodput is not None:
+                goodput.add("recompile" if it == 0 else "productive_step",
+                            time.perf_counter() - it_t0)
+            if checkpoint is not None and checkpoint.due(it):
+                # after the goodput booking: the cadence books its own
+                # wall to checkpoint_save
+                checkpoint.save(it + 1, params, opt_state)
+            if preemption is not None and preemption.requested():
+                # step boundary: the update above is complete and safe to
+                # checkpoint; never abandon a step mid-flight
+                break
+    finally:
+        if checkpoint is not None:
+            try:
+                checkpoint.drain()
+            except Exception as e:  # noqa: BLE001 — never mask loop error
+                print(f"warning: checkpoint drain at loop exit failed "
+                      f"({type(e).__name__}: {e})", flush=True)
+        if telemetry is not None:
+            if owns_telemetry:
+                telemetry.close()
+                telemetry.registry.close()  # the stream's file descriptor
+            else:
+                telemetry.flush(final=True)
+    losses = [float(l) for l in device_losses]
+    return params, opt_state, losses
+
+
+def make_telemetry(args: CoreArgs, *, registry: Any = None,
+                   world_size: int = 1,
+                   global_batch_size: Optional[int] = None) -> Any:
+    """Build a ``TrainingTelemetry`` hook (and its JSONL sink) from
+    ``args.observability``. When no ``registry`` is passed the
+    process-wide default registry is (re)configured with the sink, so
+    library-level instrumentation (rerun counters, profiler histograms,
+    spans, checkpoint gauges) lands in the same file."""
+    from hetu_galvatron_tpu_torch.observability.registry import (
+        configure,
+        metrics_path_of,
+    )
+    from hetu_galvatron_tpu_torch.observability.telemetry import (
+        TrainingTelemetry,
+    )
+
+    obs = args.observability
+    if registry is None:
+        registry = configure(
+            jsonl_path=metrics_path_of(args),
+            tensorboard_dir=(args.logging.tensorboard_dir
+                             if obs.tensorboard else None))
+    return TrainingTelemetry(
+        registry,
+        model=args.model,
+        global_batch_size=(global_batch_size
+                           or args.parallel.global_train_batch_size),
+        seq_length=args.model.seq_length,
+        world_size=world_size,
+        peak_tflops_per_device=obs.peak_tflops,
+        flush_interval=obs.flush_interval,
+    )

@@ -12,6 +12,7 @@ import torch
 from hetu_galvatron_tpu.runtime import hybrid_config as JH
 from hetu_galvatron_tpu_torch.cli import train_dist
 from hetu_galvatron_tpu_torch.core.arguments import load_config
+from hetu_galvatron_tpu_torch.observability import sinks as TSK
 from hetu_galvatron_tpu_torch.ops import _build
 from hetu_galvatron_tpu_torch.ops import flash_attention as TF
 from hetu_galvatron_tpu_torch.runtime import hybrid_config as TH
@@ -72,10 +73,11 @@ def test_torch_train_dist_with_dropout_runs_on_cpu():
 
 @pytest.mark.parametrize("flag", [
     "parallel.pp_deg=2", "ckpt.load_format=hf",
-    "observability.flight_dir=/tmp/x", "logging.tensorboard_dir=/tmp/x",
-    "logging.wandb_project=x", "observability.enabled=true",
+    "observability.tensorboard=true", "logging.tensorboard_dir=/tmp/x",
+    "logging.wandb_project=x", "profile.trace_dir=/tmp/x",
     "tp_overlap.enable=true", "parallel.hier_dp=true",
-    "train.rampup_batch_size=[2,2,8]", "supervisor.metrics_port=0",
+    "observability.audit_hardware_config=/tmp/x.json",
+    "observability.calibration_dir=/tmp/x",
     "parallel.global_tp_deg=2", "parallel.global_ep_deg=2",
     "parallel.num_devices=2", "parallel.num_processes=2",
     "parallel.config_mode=json", "parallel.sdp=1",
@@ -84,9 +86,44 @@ def test_torch_train_dist_refuses_flags_outside_the_slice(flag):
     name = flag.split("=")[0]
     with pytest.raises(NotImplementedError) as err:
         train_dist.main([GPT2, *TINY, flag])
+    # a trace window with the plan audit on (its default) names the audit
     key = {"parallel.config_mode": "JSON plan", "parallel.sdp": "sdp",
-           "parallel.num_processes": "num_processes"}.get(name, name)
+           "parallel.num_processes": "num_processes",
+           "profile.trace_dir": "observability.audit"}.get(name, name)
     assert key in str(err.value)
+
+
+@pytest.mark.parametrize("flag", [
+    "observability.flight_dir", "observability.enabled",
+    "train.rampup_batch_size=[2,2,8]", "supervisor.metrics_port=0",
+])
+def test_torch_train_dist_runs_flags_of_the_observability_slice(
+        flag, tmp_path, capsys, monkeypatch):
+    """Flags the slice refused before the batch-size ramp and
+    observability were ported: each now runs a tiny CPU training."""
+    extra = {"observability.flight_dir": [f"{flag}={tmp_path}"],
+             "observability.enabled": [
+                 f"{flag}=true",
+                 f"observability.metrics_path={tmp_path / 'm.jsonl'}"],
+             # the ramp keeps the micro size global_bsz / chunks = 2
+             "train.rampup_batch_size=[2,2,8]": [flag, "parallel.chunks=2"],
+             }.get(flag, [flag])
+    sinks = []
+    init = TSK.JsonlSink.__init__
+
+    def track(self, path):
+        init(self, path)
+        sinks.append(self)
+
+    monkeypatch.setattr(TSK.JsonlSink, "__init__", track)
+    assert train_dist.main([GPT2, *TINY, "train.train_iters=4",
+                            *extra]) == 0
+    assert "training done: 4 iters" in capsys.readouterr().out
+    if flag == "observability.enabled":
+        assert (tmp_path / "m.jsonl").stat().st_size > 0
+        assert sinks
+    # the run closes the stream it opened
+    assert all(s._fd is None for s in sinks)
 
 
 def test_torch_train_dist_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):

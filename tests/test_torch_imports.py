@@ -11,9 +11,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "hetu_galvatron_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "yaml", "pydantic", "optax", "orbax",
-           "transformers")
-# every module of the checkpoint and fault lifecycle; the first six are
-# what the process supervisor imports, and they must not need torch
+           "transformers", "tensorboardX", "prometheus_client")
+# every module of the checkpoint and fault lifecycle and of observability;
+# the first ten are what the process supervisor imports, and they must not
+# need torch
 LIFECYCLE = (
     "hetu_galvatron_tpu_torch.cli.supervise",
     "hetu_galvatron_tpu_torch.runtime.supervisor",
@@ -21,11 +22,20 @@ LIFECYCLE = (
     "hetu_galvatron_tpu_torch.runtime.rerun_machine",
     "hetu_galvatron_tpu_torch.utils.retrying",
     "hetu_galvatron_tpu_torch.observability.registry",
+    "hetu_galvatron_tpu_torch.observability.sinks",
+    "hetu_galvatron_tpu_torch.observability.recorder",
+    "hetu_galvatron_tpu_torch.observability.prometheus",
+    "hetu_galvatron_tpu_torch.cli.summarize",
     "hetu_galvatron_tpu_torch.runtime.chaos",
     "hetu_galvatron_tpu_torch.cli.train_dist",
     "hetu_galvatron_tpu_torch.runtime.checkpoint",
     "hetu_galvatron_tpu_torch.runtime.dataloader",
     "hetu_galvatron_tpu_torch.runtime.trainer",
+    "hetu_galvatron_tpu_torch.runtime.microbatches",
+    "hetu_galvatron_tpu_torch.observability.goodput",
+    "hetu_galvatron_tpu_torch.observability.tracing",
+    "hetu_galvatron_tpu_torch.observability.telemetry",
+    "hetu_galvatron_tpu_torch.observability.trace_analysis",
 )
 JAX_PKG = "hetu_galvatron_tpu"
 
@@ -104,13 +114,15 @@ def test_torch_supervisor_side_imports_no_torch():
 import importlib, sys
 for name in {BLOCKED!r} + ("torch",):
     sys.modules[name] = None
-for m in {LIFECYCLE[:6] + LIFECYCLE[7:8]!r}:
+for m in {LIFECYCLE[:10] + LIFECYCLE[11:12]!r}:
     importlib.import_module(m)
 from hetu_galvatron_tpu_torch.cli.train_dist import check_flags
 from hetu_galvatron_tpu_torch.core.arguments import load_config
 check_flags(load_config("hetu_galvatron_tpu/models/configs/gpt2-small.yaml",
                         ["supervisor.auto_restart=true",
-                         "supervisor.mode=process"]))
+                         "supervisor.mode=process",
+                         "supervisor.metrics_port=0",
+                         "observability.enabled=true"]))
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -190,17 +190,41 @@ def test_torch_registry_matches_jax():
     assert snaps[0] == snaps[1]
 
 
-def test_torch_registry_sinks_raise_by_name():
-    with pytest.raises(NotImplementedError, match="sinks"):
-        TG.configure(jsonl_path="/tmp/m.jsonl")
-    with pytest.raises(NotImplementedError, match="sinks"):
-        TG.MetricsRegistry([object()])
-    with pytest.raises(NotImplementedError, match="sinks"):
-        TG.MetricsRegistry().add_sink(object())
-    reg = TG.MetricsRegistry()
-    reg.event("supervisor", {"event": "spawn"})  # no sink: nothing written
-    reg.flush()
+def test_torch_registry_sinks_raise_by_name(tmp_path):
+    """The TensorBoard sink is not ported and raises by name; the JSONL
+    sink and any object with write / flush / close attach."""
+    prev = TG.get_registry()
+    try:
+        with pytest.raises(NotImplementedError, match="TensorBoard"):
+            TG.configure(tensorboard_dir=str(tmp_path))
+        assert TG.get_registry() is prev  # a refused configure installs none
+        reg = TG.configure(jsonl_path=str(tmp_path / "m.jsonl"))
+        assert TG.get_registry() is reg and len(reg.sinks) == 1
+    finally:
+        TG.set_registry(prev)
+
+    class Sink:
+        def __init__(self):
+            self.records, self.closed = [], False
+
+        def write(self, rec):
+            self.records.append(rec)
+
+        def flush(self):
+            pass
+
+        def close(self):
+            self.closed = True
+
+    sink = Sink()
+    reg = TG.MetricsRegistry([sink])
+    reg.event("supervisor", {"event": "spawn"})
+    reg.counter("supervisor/spawns").inc()
     reg.close()
+    assert [r["name"] for r in sink.records] == ["supervisor",
+                                                 "supervisor/spawns"]
+    assert sink.closed
+    TG.MetricsRegistry().close()  # no sink: nothing written
 
 
 # -- runtime/ckpt_paths.py ----------------------------------------------------

@@ -252,7 +252,8 @@ def test_torch_health_payload(tmp_path):
 def test_torch_supervise_child_argv_and_refusals(tmp_path):
     """The child command line: the operator's argv, the forced
     single-attempt overrides, then the resume override once a commit
-    exists; the /healthz port raises by name."""
+    exists; a flag outside the port raises by name before any child
+    starts."""
     ck = str(tmp_path / "ck")
     base = [GPT2, "device=cpu", f"ckpt.save={ck}"]
     args = load_config(GPT2, base[1:])
@@ -264,5 +265,7 @@ def test_torch_supervise_child_argv_and_refusals(tmp_path):
     _commit(ck, 2)
     assert TCLI.child_argv(base, args, TV.SupervisorState())[-1] == \
         f"ckpt.load={ck}"
-    with pytest.raises(NotImplementedError, match="metrics_port"):
-        TCLI.main(base + ["supervisor.metrics_port=0"])
+    with pytest.raises(NotImplementedError,
+                       match="observability.tensorboard"):
+        TCLI.main(base + ["supervisor.metrics_port=0",
+                          "observability.tensorboard=true"])
