@@ -137,13 +137,56 @@ each of which ends the run with a non-zero exit when it fails:
     (``signal:SIGTERM``, ``child_exit_18``) and ``cli/summarize.py`` reads
     each; the stitched losses and parameters equal an uninterrupted run's.
     ``python3 chip_smoke.py --obs-only`` runs phases 1-3, 12 and 13.
+14. main path of slice 9, KV-cache decode and the serving engine, with
+    the launch counters reset before each run and K1-K5 required to
+    launch 0 times (the serving path runs the plain attention core):
+    (a) ``qwen2.5-7b.yaml`` uncut (28 layers, 7.62 B parameters, random
+    from seed 1234, matrices cast to bf16 once) behind
+    ``serving.engine.ServingEngine`` (8 lanes, blocks of 16, a pool of
+    4096 blocks, ``max_seq_len`` 2048): 32 greedy requests from seed 0
+    (prompts of 64-1024 random ids, 16 of them opening with one
+    512-token prefix, the last the prefix alone; 128 new tokens;
+    arrivals over the first second), run plain, again plain with
+    ``serving.trace_requests=1``, with ``serving.prefix_cache=1`` and
+    with ``serving.spec_decode=1`` (n-gram, k 4); each prints TTFT and
+    inter-token p50 / p99, tokens/s, the peak KV occupancy, peak memory,
+    the prefix hit rate with TTFT cold against hit, the spec accept
+    rate; a traced window of 16 steps of each gives the device's idle
+    share over decode steps. (b) exact gates: the repeat run equals the
+    first bit for bit, four requests served alone equal their streams
+    among the 32, the decode (verify) step keeps one input shape, at
+    idle the allocator holds only the prefix cache's blocks, every
+    request's event timeline is complete, peak memory under 79 GiB.
+    (c) numerical gates, in fp32 (the bf16 forward of this model sits
+    11-14x the bf16 limit from its own fp32 twin, so no bf16 run can
+    meet that rule): the engine's logits at every emitted position of
+    five requests (a cold run, prefix hits with the fully cached path,
+    spec decode) against a teacher-forced fp32 forward under the fp32
+    rule, and the streams of the engine against the offline ``generate``,
+    of prefix hits and of spec decode against cold runs, any parting
+    held to the same rule at its position; the bf16 pairs (the engine
+    against the offline ``generate`` at batch 4, prefix hits and spec
+    decode against plain) are printed: equal streams, each parting's
+    position and both runs' top-2 gaps, from replays that must repeat
+    the runs bit for bit. (d) ``generate_encdec`` on ``t5-3b.yaml`` at
+    full depth (batch 4, encoder 256, 32 tokens) against a
+    teacher-forced ``forward_encdec``: fp32 under the fp32 rule, bf16
+    timed. (e) ``cli.serve`` on GPT-2 small as a child on the card with
+    ``requests.jsonl``, ``metrics=``, request tracing and ``watch=`` on
+    a checkpoint root where a second checkpoint is committed once it
+    serves: one swap or more, no request dropped, the requests sent
+    after the swap equal a fresh engine's on the new weights bit for
+    bit, ``serve/swap_stall_ms`` printed, ``cli/summarize.py --timeline
+    all`` finds every timeline complete.
+    ``python3 chip_smoke.py --serve-only`` runs phases 1, 2 and 14.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
 layers, steps and evals say.
 
-The last lines are the kernels JSON line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``. Each kernel's row carries, under
+The last lines are the serving JSON line (phase 14's numbers and gates),
+the kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
+"device": {...}}``. Each kernel's row carries, under
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
 and bound times measured at that path's shape. The row's own ``launches``
@@ -158,6 +201,7 @@ from __future__ import annotations
 
 import glob
 import inspect
+import io
 import json
 import math
 import os
@@ -2482,6 +2526,828 @@ def check_ce(peak_bytes):
     return {"checks": checks, "timing": timing, "zloss": check_ce_zloss()}
 
 
+# -- phase 14: KV-cache decode and the continuous-batching engine ------------
+
+SERVE_PATH = "qwen2.5-7b-serving"
+SERVE_PHASE = ("phase 14: main path of slice 9 (KV-cache decode and the "
+               "serving engine: qwen2.5-7b uncut, t5-3b generate_encdec, "
+               "cli.serve with a weight swap)")
+SERVE_REQUESTS, SERVE_SHARED, SERVE_PREFIX = 32, 16, 512
+SERVE_LEN = (64, 1024)  # prompt lengths, uniform
+SERVE_VOCAB = 152064  # Qwen2.5's
+SERVE_NEW = 128
+SERVE_ARRIVALS_S = 1.0  # arrivals uniform over the first second
+SERVE_SPEC_K = 4
+# max_seq_len 2048 holds the longest request (1024 + 128) and keeps the
+# decode step's gathered pages at 2048 positions; 4096 blocks of 16 tokens
+# are 3.76 GB of bf16 k/v
+SERVE_ARGS = dict(max_batch_size=8, kv_block_size=16, num_kv_blocks=4096,
+                  max_seq_len=2048, max_new_tokens=SERVE_NEW,
+                  flush_interval=64)
+TRACE_STEPS = 16  # decode steps in each traced window
+T5_GEN_B, T5_GEN_ENC, T5_GEN_NEW = 4, 256, 32
+CLI_NEW, CLI_LATE_S = 32, 6.0  # phase 14 (e): late requests' arrival
+CLI_TIMEOUT_S = 300
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SERVE_DEVICE = "cuda"
+CLI_EXTRA = []  # overrides the cli.serve child takes on top of the yaml
+
+
+def serve_requests():
+    """The 32 prompts of phase 14 (a) from seed 0: 16 of 64-1024 random
+    ids, 16 that open with one 512-token prefix (one of them the prefix
+    alone, the fully cached path, sent last), in a seeded order, with
+    arrival offsets over the first second."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    vocab = SERVE_VOCAB
+    lo, hi = SERVE_LEN
+    prefix = rng.integers(0, vocab, SERVE_PREFIX).tolist()
+    plain = [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist()
+             for _ in range(SERVE_REQUESTS - SERVE_SHARED)]
+    shared = [prefix + rng.integers(
+        0, vocab, int(rng.integers(1, hi - SERVE_PREFIX + 1))).tolist()
+        for _ in range(SERVE_SHARED - 1)]
+    reqs = [(p, False) for p in plain] + [(p, True) for p in shared]
+    order = rng.permutation(len(reqs))
+    reqs = [reqs[i] for i in order] + [(list(prefix), True)]
+    arrivals = np.sort(rng.uniform(0.0, SERVE_ARRIVALS_S, len(reqs)))
+    return ([p for p, _ in reqs], [s for _, s in reqs],
+            [float(a) for a in arrivals])
+
+
+def serve_engine(cp, cfg, registry=None, dtype=None, warm=True, **over):
+    """An engine over ``cp`` with phase 14's serving args and ``over``, in
+    ``dtype`` (bf16 by default), warmed up unless ``warm`` is off."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.core.args_schema import ServingArgs
+    from hetu_galvatron_tpu_torch.observability.registry import (
+        MetricsRegistry,
+    )
+    from hetu_galvatron_tpu_torch.serving.engine import ServingEngine
+
+    sv = ServingArgs(**dict(SERVE_ARGS, **over))
+    eng = ServingEngine(cp, cfg, sv, compute_dtype=dtype or torch.bfloat16,
+                        registry=registry if registry is not None
+                        else MetricsRegistry())
+    if warm:
+        eng.warmup()
+    return eng
+
+
+def drive(eng, reqs, arrivals):
+    """Submit each request at its arrival offset and step the engine until
+    every one retires; returns the handles and the run's host numbers
+    (each step's wall and whether it admitted, the peak KV occupancy)."""
+    reg = eng.registry
+    handles = [None] * len(reqs)
+    steps, occ, nxt = [], 0.0, 0
+    t0 = time.perf_counter()
+    while nxt < len(reqs) or eng.scheduler.has_work():
+        now = time.perf_counter() - t0
+        while nxt < len(reqs) and arrivals[nxt] <= now:
+            handles[nxt] = eng.submit(reqs[nxt])
+            nxt += 1
+        if not eng.scheduler.has_work():
+            if nxt < len(reqs):
+                time.sleep(min(max(arrivals[nxt] - now, 0.0), 0.01))
+            continue
+        admitted = reg.histogram("serve/queue_wait_ms").count
+        ts = time.perf_counter()
+        eng.step()
+        steps.append(((time.perf_counter() - ts) * 1e3,
+                      reg.histogram("serve/queue_wait_ms").count
+                      == admitted))
+        occ = max(occ, eng.kv.occupancy)
+    wall = time.perf_counter() - t0
+    eng.flush()
+    return handles, dict(wall_s=wall, steps=steps, peak_occupancy=occ)
+
+
+def serve_run(tag, cp, cfg, reqs, arrivals, smi, registry=None, **over):
+    """One engine run over the 32 requests: launch counters and peak
+    memory reset before it; the printed numbers and the run's gates."""
+    import numpy as np
+    import torch
+
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    eng = serve_engine(cp, cfg, registry=registry, **over)
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    handles, drv = drive(eng, reqs, arrivals)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reg = eng.registry
+    bad = [i for i, h in enumerate(handles)
+           if h.status != "done" or len(h.output) != SERVE_NEW]
+    if bad:
+        raise SmokeFailure(f"({tag}) requests {bad} did not finish their "
+                           f"{SERVE_NEW} tokens")
+    if any(launches.values()):
+        raise SmokeFailure(f"({tag}) the serving path launched {launches}; "
+                           "it runs no kernel of ops/")
+    if peak >= MEM_LIMIT_GIB:
+        raise SmokeFailure(f"({tag}) peak memory {peak:.2f} GiB")
+    program = "verify" if eng._draft is not None else "decode"
+    shapes = eng.program_shapes()
+    if len(shapes[program]) != 1:
+        raise SmokeFailure(f"({tag}) the {program} step ran at shapes "
+                           f"{shapes[program]}")
+    held = eng.prefix.blocks_held if eng.prefix is not None else 0
+    if eng.kv.allocator.used != held:
+        raise SmokeFailure(f"({tag}) at idle the allocator holds "
+                           f"{eng.kv.allocator.used} blocks, the prefix "
+                           f"cache {held}")
+    ttft = reg.histogram("serve/ttft_ms").snapshot()
+    itl = reg.histogram("serve/itl_ms").snapshot()
+    tokens = sum(len(h.output) for h in handles)
+    decode_ms = [w for w, dec in drv["steps"] if dec]
+    out = dict(
+        ttft_p50_ms=ttft["p50"], ttft_p99_ms=ttft["p99"],
+        itl_p50_ms=itl["p50"], itl_p99_ms=itl["p99"], tokens=tokens,
+        wall_s=drv["wall_s"], tokens_per_s=tokens / drv["wall_s"],
+        steps=len(drv["steps"]), decode_only_steps=len(decode_ms),
+        decode_step_ms_median=float(np.median(decode_ms)),
+        peak_kv_occupancy=drv["peak_occupancy"],
+        max_memory_allocated_gib=peak, launches=launches,
+        program_shapes={k: sorted(map(str, v)) for k, v in shapes.items()
+                        if k in ("decode", "verify")},
+        streams=[h.result(0) for h in handles],
+        cached=[h.cached_tokens for h in handles])
+    log(f"  ({tag}) {smi}: TTFT p50 {out['ttft_p50_ms']:.2f} / p99 "
+        f"{out['ttft_p99_ms']:.2f} ms, inter-token p50 "
+        f"{out['itl_p50_ms']:.2f} / p99 {out['itl_p99_ms']:.2f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s ({tokens} tokens in "
+        f"{drv['wall_s']:.2f} s, {out['steps']} steps, decode-only median "
+        f"{out['decode_step_ms_median']:.2f} ms), peak KV occupancy "
+        f"{out['peak_kv_occupancy']:.4f}, max_memory_allocated "
+        f"{peak:.2f} GiB, K1-K5 launches {launches}")
+    if eng.prefix is not None:
+        cold = [h.ttft_s() * 1e3 for h in handles if not h.cached_tokens]
+        hit = [h.ttft_s() * 1e3 for h in handles if h.cached_tokens]
+        out.update(prefix_hit_rate=eng.prefix.hit_rate,
+                   ttft_cold_p50_ms=float(np.median(cold)),
+                   ttft_hit_p50_ms=float(np.median(hit)) if hit else None,
+                   hits=len(hit))
+        log(f"  ({tag}) {smi}: prefix hit rate {eng.prefix.hit_rate:.4f} "
+            f"({len(hit)} hits), TTFT p50 cold {out['ttft_cold_p50_ms']:.2f}"
+            f" ms against hit {out['ttft_hit_p50_ms']:.2f} ms")
+        if not hit:
+            raise SmokeFailure(f"({tag}) no request hit the prefix cache")
+    if eng._draft is not None:
+        out.update(spec_accept_rate=eng.spec_accept_rate(),
+                   drafted=eng._drafted_total,
+                   accepted=eng._accepted_total)
+        log(f"  ({tag}) {smi}: spec accept rate "
+            f"{out['spec_accept_rate']:.4f} ({eng._accepted_total} of "
+            f"{eng._drafted_total} drafted)")
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_idle(tag, cp, cfg, reqs, smi, tmp, untraced_ms, **over):
+    """The device's idle share over decode (or verify) steps: 8 requests
+    admitted, then ``TRACE_STEPS`` steps under ``torch.profiler``, each in
+    a ``serve/decode_step`` range; per step, the union of the kernels
+    inside the step's host interval against its wall. Also against the
+    untraced run's median decode-only step (``untraced_ms``), since the
+    profiler slows the host's launches."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.observability.trace_analysis import (
+        load_trace,
+    )
+
+    eng = serve_engine(cp, cfg, **over)
+    for p in reqs[:8]:
+        eng.submit(p)
+    for _ in range(3):
+        eng.step()  # the admissions' prefills, then decode only
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_STEPS):
+            with torch.profiler.record_function("serve/decode_step"):
+                eng.step()
+    out_dir = os.path.join(tmp, f"trace_{tag}")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "run.trace.json"))
+    eng.close()
+    del eng, prof
+    torch.cuda.empty_cache()
+    trace = load_trace(out_dir)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in trace.events if e.get("cat") == "user_annotation"
+             and e.get("name") == "serve/decode_step"]
+    ops = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                  str(e.get("name", ""))) for e in trace.events
+                 if e.get("cat") in DEVICE_CATS)
+    if len(spans) != TRACE_STEPS or not ops:
+        raise SmokeFailure(f"({tag}) trace: {len(spans)} steps, {len(ops)} "
+                           "device ops")
+    busy = wall = 0.0
+    kernels = 0
+    for s0, s1 in spans:
+        cur_s = cur_e = None
+        for a, b, _ in ops:
+            a, b = max(a, s0), min(b, s1)
+            if b <= a:
+                continue
+            kernels += 1
+            if cur_e is None or a > cur_e:
+                if cur_e is not None:
+                    busy += cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        if cur_e is not None:
+            busy += cur_e - cur_s
+        wall += s1 - s0
+    names = {n for _, _, n in ops}
+    ours = [n for n in names if re.search(r"flash_|ce_fwd|ce_bwd", n)]
+    if ours:
+        raise SmokeFailure(f"({tag}) trace holds kernels of ops/: {ours}")
+    busy_ms, wall_ms = busy / 1e3 / TRACE_STEPS, wall / 1e3 / TRACE_STEPS
+    res = dict(traced_step_ms=wall_ms, busy_ms_per_step=busy_ms,
+               idle_share_traced=1.0 - busy_ms / wall_ms,
+               idle_share_untraced=1.0 - busy_ms / untraced_ms,
+               untraced_step_ms=untraced_ms,
+               device_ops_per_step=kernels / TRACE_STEPS)
+    log(f"  ({tag}) {smi}: {TRACE_STEPS} traced steps: "
+        f"{res['device_ops_per_step']:.0f} device ops a step, busy "
+        f"{busy_ms:.3f} of {wall_ms:.3f} ms (idle "
+        f"{res['idle_share_traced'] * 100:.1f}%); against the untraced "
+        f"median decode-only step {untraced_ms:.3f} ms: idle "
+        f"{res['idle_share_untraced'] * 100:.1f}%")
+    return res
+
+
+def logits_rule(name, got, want, tol=TOL_FP32):
+    """Every element within tol * (rms(want) + |want|) (``compare``; the
+    repo's fp32 rule by default)."""
+    import torch
+
+    return compare(name, got.to(SERVE_DEVICE, torch.float32),
+                   want.to(SERVE_DEVICE, torch.float32), tol)
+
+
+def noise(got, want, tol=TOL_16):
+    """Reported, not gated: the error's RMS over the want's RMS and the
+    worst element's share of tol * (rms(want) + |want|)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    err = (got - want).abs()
+    rms = want.square().mean().sqrt()
+    return dict(err_rms_over_rms=float(err.square().mean().sqrt() / rms),
+                max_abs_err=float(err.max()),
+                worst_over_bf16_limit=float(
+                    (err / (tol * (rms + want.abs()))).max()))
+
+
+def top2_gap(row) -> float:
+    import torch
+
+    v = torch.topk(row.float(), 2).values
+    return float(v[0] - v[1])
+
+
+def first_diff(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def teacher_forced(cp, cfg, prompt, stream, dtype):
+    """fp32 logits of ``prompt + stream[:-1]`` through
+    ``models/builder.forward_causal_lm`` in ``dtype`` (the plain attention
+    core): row i is the model's view before stream[i]."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.models.builder import forward_causal_lm
+
+    toks = torch.tensor([prompt + stream[:-1]], device=SERVE_DEVICE)
+    with torch.no_grad():
+        logits = forward_causal_lm(cp, toks, cfg, compute_dtype=dtype)
+    return logits[0, len(prompt) - 1:].float()
+
+
+def hooked(eng, want_at=None):
+    """Install a logits hook on ``eng``: rows by (rid, index), all of
+    them or only the indices ``want_at[rid]``; returns the dict."""
+    seen = {}
+
+    def hook(rid, i, row):
+        if want_at is None or want_at.get(rid) == i:
+            seen[(rid, i)] = row.float().cpu()
+
+    eng.logits_hook = hook
+    return seen
+
+
+def serve_alone(cp, cfg, reqs, idx, dtype, primer=None, max_new=None,
+                want_p=None, **over):
+    """Serve requests ``idx`` together on a fresh engine (``over``; no
+    warm-up), after ``primer`` (one request of one token: it writes the
+    prefix cache's blocks); returns their streams, cached lengths and
+    logits rows (every emitted position, or only ``want_p[i]``)."""
+    import torch
+
+    eng = serve_engine(cp, cfg, dtype=dtype, warm=False, **over)
+    if primer is not None:
+        eng.submit(reqs[primer], max_new_tokens=1)
+        eng.run_until_idle()
+    hs = {i: eng.submit(reqs[i], max_new_tokens=None if max_new is None
+                        else max_new[i]) for i in idx}
+    want_at = (None if want_p is None else
+               {hs[i].request.rid: want_p[i] for i in idx})
+    seen = hooked(eng, want_at)
+    eng.run_until_idle()
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    streams = {i: h.result(0) for i, h in hs.items()}
+    rows = {i: (seen[(hs[i].request.rid, want_p[i])] if want_p is not None
+                else torch.stack([seen[(hs[i].request.rid, j)]
+                                  for j in range(len(streams[i]))]))
+            for i in idx}
+    return streams, {i: h.cached_tokens for i, h in hs.items()}, rows
+
+
+def parting(tag, name_a, name_b, idx, streams_a, streams_b, rows, smi,
+            want=None):
+    """Streams of two runs: how many are equal; where one parts, both
+    runs' top-2 gaps at the parting position, and with ``want(i, p)``
+    both runs' logits there held to the fp32 rule against it (a near
+    tie); without, their distance is reported. ``rows(i, p)`` gives the
+    two runs' logits at position p of request i."""
+    equal, parts = 0, []
+    for i in idx:
+        p = first_diff(streams_a[i], streams_b[i])
+        if p is None:
+            equal += 1
+            continue
+        ra, rb = rows(i, p)
+        rec = dict(request=i, position=p, gap_a=top2_gap(ra),
+                   gap_b=top2_gap(rb), distance=noise(ra, rb))
+        if want is not None:
+            w = want(i, p)
+            rec["worst_a"] = logits_rule(
+                f"{tag} req {i} pos {p} {name_a}", ra, w)["worst_over_limit"]
+            rec["worst_b"] = logits_rule(
+                f"{tag} req {i} pos {p} {name_b}", rb, w)["worst_over_limit"]
+        parts.append(rec)
+        log(f"  {tag}: request {i} parts at position {p}: top-2 gap "
+            f"{name_a} {rec['gap_a']:.5f}, {name_b} {rec['gap_b']:.5f}; "
+            f"the runs' logits there differ by "
+            f"{rec['distance']['err_rms_over_rms']:.4f} of their RMS")
+    log(f"  {tag} ({smi}): {equal} of {len(idx)} streams equal "
+        f"({name_a} against {name_b}), {len(parts)} part")
+    return dict(equal=equal, compared=len(idx), parted=parts)
+
+
+def qwen_fp32_gates(params, cfg, reqs, alone, prefix_idx, smi):
+    """Phase 14 (c), in fp32 where the repo's fp32 rule holds: the engine's
+    logits at every emitted position against a teacher-forced fp32
+    forward, for a cold run, prefix hits (the fully cached prompt
+    included) and spec decode; and the streams of the engine against the
+    offline ``generate``, of prefix hits and of spec decode against cold
+    runs, each parting only where both runs' logits meet the rule."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.models.generate import generate
+
+    f32 = torch.float32
+    over = dict(num_kv_blocks=1024)  # 1.88 GB of fp32 k/v
+    hits = [i for i in alone if len(reqs[i]) > SERVE_PREFIX
+            and reqs[i][:SERVE_PREFIX] == reqs[prefix_idx]] + [prefix_idx]
+    idx = alone + [prefix_idx]
+    cold, _, cold_rows = serve_alone(params, cfg, reqs, idx, f32, **over)
+    tf = {i: teacher_forced(params, cfg, reqs[i], cold[i], f32)
+          for i in idx}
+    out = {"engine_logits_worst_over_limit": {
+        i: logits_rule(f"fp32 engine logits, request {i}", cold_rows[i],
+                       tf[i])["worst_over_limit"] for i in idx}}
+    # the offline generate at batch 4, left-padded
+    s0 = max(len(reqs[i]) for i in alone)
+    toks = torch.zeros((len(alone), s0), dtype=torch.long,
+                       device=SERVE_DEVICE)
+    for b, i in enumerate(alone):
+        toks[b, s0 - len(reqs[i]):] = torch.tensor(reqs[i])
+    off_rows = []
+    gen = generate(params, toks, cfg, SERVE_NEW,
+                   prompt_lens=torch.tensor([len(reqs[i]) for i in alone],
+                                            device=SERVE_DEVICE),
+                   compute_dtype=f32,
+                   on_logits=lambda j, lg: off_rows.append(lg.float().cpu()))
+    offline = {i: gen[b, s0:].tolist() for b, i in enumerate(alone)}
+    out["engine_vs_offline"] = parting(
+        "(c) fp32 engine against offline generate", "engine", "offline",
+        alone, cold, offline,
+        lambda i, p: (cold_rows[i][p], off_rows[p][alone.index(i)]), smi,
+        want=lambda i, p: tf[i][p])
+    for tag, kw, ids in (("prefix", dict(prefix_cache=True,
+                                         primer=prefix_idx), hits),
+                         ("spec", dict(spec_decode=True,
+                                       spec_k=SERVE_SPEC_K), idx)):
+        streams, cached, rows = serve_alone(params, cfg, reqs, ids, f32,
+                                            **kw, **over)
+        if tag == "prefix" and any(cached[i] != SERVE_PREFIX for i in ids):
+            raise SmokeFailure(f"(c) fp32 prefix hits cached {cached}")
+        worst = {}
+        for i in ids:
+            # every position up to the parting (or all): the same context
+            # as the teacher-forced forward of the cold stream
+            p = first_diff(cold[i], streams[i])
+            n = len(streams[i]) if p is None else p + 1
+            worst[i] = logits_rule(f"fp32 {tag} logits, request {i}",
+                                   rows[i][:n], tf[i][:n])["worst_over_limit"]
+        out[f"{tag}_logits_worst_over_limit"] = worst
+        out[f"{tag}_vs_cold"] = parting(
+            f"(c) fp32 {tag} against cold", "cold", tag, ids, cold, streams,
+            lambda i, p, r=rows: (cold_rows[i][p], r[i][p]), smi,
+            want=lambda i, p: tf[i][p])
+    del tf, cold_rows, off_rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_serving(smi, tmp):
+    """Phase 14 (a)-(c) on ``qwen2.5-7b.yaml`` uncut."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli import summarize as TSUM
+    from hetu_galvatron_tpu_torch.core.arguments import args_from_cli
+    from hetu_galvatron_tpu_torch.models.builder import (
+        init_causal_lm,
+        param_count,
+    )
+    from hetu_galvatron_tpu_torch.models.generate import (
+        cast_for_compute,
+        generate,
+    )
+    from hetu_galvatron_tpu_torch.observability.registry import (
+        MetricsRegistry,
+    )
+    from hetu_galvatron_tpu_torch.observability.sinks import JsonlSink
+
+    cfg = args_from_cli([QWEN_YAML], mode="train_dist").model
+    t0 = time.perf_counter()
+    params = init_causal_lm(cfg, seed=1234, device=SERVE_DEVICE)
+    n_params = param_count(params)
+    reqs, shared, arrivals = serve_requests()
+    lens = [len(p) for p in reqs]
+    log(f"  qwen2.5-7b uncut: {cfg.num_hidden_layers} layers, {n_params:,} "
+        f"parameters from seed 1234 in {time.perf_counter() - t0:.1f} s; "
+        f"{len(reqs)} requests: prompts {min(lens)}-{max(lens)} ids, "
+        f"{sum(shared)} open with one {SERVE_PREFIX}-token prefix (the last "
+        f"is the prefix alone), {SERVE_NEW} new tokens each, greedy, "
+        f"arrivals over {SERVE_ARRIVALS_S:.0f} s")
+    alone = [i for i, s in enumerate(shared) if not s][:2] + \
+        [i for i, s in enumerate(shared) if s][:2]
+    prefix_idx = len(reqs) - 1
+    t0 = time.perf_counter()
+    fp32 = qwen_fp32_gates(params, cfg, reqs, alone, prefix_idx, smi)
+    log(f"  (c) fp32 gates in {time.perf_counter() - t0:.1f} s")
+    cp = cast_for_compute(params, torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    gib = sum(t.numel() * t.element_size() for t in _leaves(cp)) / 2 ** 30
+    log(f"  bf16 compute copy: {gib:.2f} GiB (bf16 matrices, fp32 "
+        "embedding and norms)")
+
+    # (a) the three runs, and (b) a second plain run with request events
+    runs = {"plain": serve_run("plain", cp, cfg, reqs, arrivals, smi)}
+    events_path = os.path.join(tmp, "serve_events.jsonl")
+    reg = MetricsRegistry([JsonlSink(events_path)])
+    runs["plain-repeat"] = serve_run("plain-repeat", cp, cfg, reqs,
+                                     arrivals, smi, registry=reg,
+                                     trace_requests=True)
+    reg.close()
+    runs["prefix"] = serve_run("prefix", cp, cfg, reqs, arrivals, smi,
+                               prefix_cache=True)
+    runs["spec"] = serve_run("spec", cp, cfg, reqs, arrivals, smi,
+                             spec_decode=True, spec_k=SERVE_SPEC_K)
+    plain = runs["plain"]["streams"]
+    if runs["plain-repeat"]["streams"] != plain:
+        diff = [i for i, (a, b) in enumerate(zip(
+            plain, runs["plain-repeat"]["streams"])) if a != b]
+        raise SmokeFailure(f"a second plain run differs on requests {diff}")
+    log("  (b) the second plain run repeats the first bit for bit")
+    records = stream_records(events_path)
+    timelines, bad = TSUM.request_timelines(records)
+    complete = sum(TSUM.timeline_complete(e) for e in timelines.values())
+    if bad or len(timelines) != len(reqs) or complete != len(reqs):
+        raise SmokeFailure(f"request events: {len(timelines)} timelines, "
+                           f"{complete} complete, {bad} corrupt")
+    log(f"  (b) serving.trace_requests=1: {complete} of {len(reqs)} "
+        "timelines complete")
+    log(f"  (a) {smi}: tokens/s {runs['spec']['tokens_per_s']:.1f} with "
+        f"spec decode against {runs['plain']['tokens_per_s']:.1f} without")
+
+    # the device's idle share over decode steps, each configuration
+    for tag, over in (("plain", {}), ("prefix", dict(prefix_cache=True)),
+                      ("spec", dict(spec_decode=True,
+                                    spec_k=SERVE_SPEC_K))):
+        runs[tag]["idle"] = traced_idle(
+            tag, cp, cfg, reqs, smi, tmp,
+            runs[tag]["decode_step_ms_median"], **over)
+
+    # (b) four requests served alone: the same streams as among the 32;
+    # their bf16 logits beside the bf16 noise of the model itself
+    streams, _, rows = serve_alone(cp, cfg, reqs, alone, torch.bfloat16)
+    bf16 = {"noise": {}}
+    for i in alone:
+        if streams[i] != plain[i]:
+            raise SmokeFailure(f"request {i} served alone differs from its "
+                               "stream among the 32")
+        tf16 = teacher_forced(cp, cfg, reqs[i], plain[i], torch.bfloat16)
+        tf32 = teacher_forced(cp, cfg, reqs[i], plain[i], torch.float32)
+        bf16["noise"][i] = dict(engine_vs_tf_bf16=noise(rows[i], tf16),
+                                engine_vs_tf_fp32=noise(rows[i], tf32),
+                                tf_bf16_vs_tf_fp32=noise(tf16, tf32))
+        n = bf16["noise"][i]
+        log(f"  (c) bf16, request {i} (reported): the engine's logits "
+            f"against the bf16 teacher-forced forward "
+            f"{n['engine_vs_tf_bf16']['err_rms_over_rms']:.4f} of their "
+            f"RMS (worst {n['engine_vs_tf_bf16']['worst_over_bf16_limit']:.2f}"
+            f" of the bf16 limit), against fp32 "
+            f"{n['engine_vs_tf_fp32']['err_rms_over_rms']:.4f}; the bf16 "
+            f"forward against fp32 "
+            f"{n['tf_bf16_vs_tf_fp32']['err_rms_over_rms']:.4f} (worst "
+            f"{n['tf_bf16_vs_tf_fp32']['worst_over_bf16_limit']:.2f})")
+    log(f"  (b) requests {alone} served alone: bit-identical to their "
+        "streams among the 32")
+    # bf16 stream pairs (reported): the engine against the offline
+    # generate at batch 4, prefix hits and spec decode against plain
+    s0 = max(len(reqs[i]) for i in alone)
+    toks = torch.zeros((len(alone), s0), dtype=torch.long,
+                       device=SERVE_DEVICE)
+    for b, i in enumerate(alone):
+        toks[b, s0 - len(reqs[i]):] = torch.tensor(reqs[i])
+    off_rows = []
+    out = generate(cp, toks, cfg, SERVE_NEW,
+                   prompt_lens=torch.tensor([len(reqs[i]) for i in alone],
+                                            device=SERVE_DEVICE),
+                   compute_dtype=torch.bfloat16,
+                   on_logits=lambda j, lg: off_rows.append(lg.float().cpu()))
+    offline = {i: out[b, s0:].tolist() for b, i in enumerate(alone)}
+    bf16["engine_vs_offline"] = parting(
+        "(c) bf16 engine against offline generate", "engine", "offline",
+        alone, {i: plain[i] for i in alone}, offline,
+        lambda i, p: (rows[i][p], off_rows[p][alone.index(i)]), smi)
+    everyone = list(range(len(reqs)))
+    for tag, run, over in (
+            ("prefix", runs["prefix"], dict(prefix_cache=True)),
+            ("spec", runs["spec"], dict(spec_decode=True,
+                                        spec_k=SERVE_SPEC_K))):
+        other = run["streams"]
+        parted = {i: first_diff(plain[i], other[i]) for i in everyone}
+        parted = {i: p for i, p in parted.items() if p is not None}
+        rows_a = rows_b = {}
+        if parted:
+            idx = sorted(parted)
+            new_a = {i: parted[i] + 1 for i in idx}
+            sa, _, rows_a = serve_alone(cp, cfg, reqs, idx, torch.bfloat16,
+                                        max_new=new_a, want_p=parted)
+            primer = None
+            if tag == "prefix":
+                # the first cold request of the shared prefix wrote the
+                # cached blocks in the run replayed
+                primer = next(i for i in everyone if shared[i]
+                              and not run["cached"][i])
+                new_b = new_a
+            else:
+                # the verify windows keep their width through position p
+                new_b = {i: min(SERVE_NEW, parted[i] + 1 + SERVE_SPEC_K)
+                         for i in idx}
+            sb, cached, rows_b = serve_alone(
+                cp, cfg, reqs, idx, torch.bfloat16, primer=primer,
+                max_new=new_b, want_p=parted, **over)
+            for i in idx:
+                if sa[i] != plain[i][:len(sa[i])] or \
+                        sb[i] != other[i][:len(sb[i])]:
+                    raise SmokeFailure(f"({tag}) the replay of request {i} "
+                                       "differs from its run")
+                if tag == "prefix" and cached[i] != run["cached"][i]:
+                    raise SmokeFailure(f"(prefix) replay of request {i} "
+                                       f"cached {cached[i]} tokens, the run "
+                                       f"{run['cached'][i]}")
+        bf16[f"{tag}_vs_plain"] = parting(
+            f"(c) bf16 {tag} against plain", "plain", tag, everyone, plain,
+            other, lambda i, p, a=rows_a, b=rows_b: (a[i], b[i]), smi)
+    for r in runs.values():
+        del r["streams"], r["cached"]
+    del cp
+    torch.cuda.empty_cache()
+    return dict(runs=runs, fp32_gates=fp32, bf16_reported=bf16,
+                parameters=n_params, requests=len(reqs), alone=alone)
+
+
+def _leaves(tree):
+    from hetu_galvatron_tpu_torch.models.builder import named_leaves
+
+    return [t for _, t in named_leaves(tree)]
+
+
+def t5_generate(smi):
+    """Phase 14 (d): ``generate_encdec`` on ``t5-3b.yaml`` at full depth
+    against a teacher-forced ``forward_encdec``: in fp32 under the repo's
+    fp32 rule (gated), then in bf16 (timed; its distance reported)."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.core.arguments import args_from_cli
+    from hetu_galvatron_tpu_torch.models.builder import init_causal_lm
+    from hetu_galvatron_tpu_torch.models.encdec import forward_encdec
+    from hetu_galvatron_tpu_torch.models.generate import (
+        cast_for_compute,
+        generate_encdec,
+    )
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    cfg = args_from_cli([T5_YAML], mode="train_dist").model
+    params = init_causal_lm(cfg, seed=1234, device=SERVE_DEVICE)
+    gen = torch.Generator(device=SERVE_DEVICE).manual_seed(0)
+    enc = torch.randint(0, cfg.vocab_size, (T5_GEN_B, T5_GEN_ENC),
+                        generator=gen, device=SERVE_DEVICE)
+    res = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cp = cast_for_compute(params, dtype)
+        rows = []
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_encdec(cp, enc, cfg, T5_GEN_NEW, compute_dtype=dtype,
+                              on_logits=lambda j, lg: rows.append(lg.float()))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.launch_counts)
+        if any(launches.values()):
+            raise SmokeFailure(f"(d) generate_encdec launched {launches}")
+        got = torch.stack(rows, 1)  # [B, new, V]
+        with torch.no_grad():
+            want = forward_encdec(cp, enc, out[:, :-1], cfg,
+                                  compute_dtype=dtype).float()
+        if tag == "fp32":
+            err = logits_rule("t5-3b generate_encdec fp32 logits", got, want)
+            res[tag] = dict(ms=ms, worst_over_limit=err["worst_over_limit"],
+                            max_abs_err=err["max_abs_err"])
+        else:
+            res[tag] = dict(ms=ms, **noise(got, want))
+        log(f"  (d) {smi}: t5-3b {tag}, {cfg.num_encoder_layers} + "
+            f"{cfg.num_hidden_layers} layers, batch {T5_GEN_B}, encoder "
+            f"{T5_GEN_ENC}, {T5_GEN_NEW} new tokens in {ms:.1f} ms "
+            f"({ms / T5_GEN_NEW:.2f} ms a token, the encoder included), "
+            f"K1-K5 launches {launches}; logits against the teacher-forced "
+            f"forward: {res[tag]}")
+        del cp, got, want
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def cli_serve_swap(smi, tmp):
+    """Phase 14 (e): ``cli.serve`` on GPT-2 small as a child process with
+    ``watch=`` on a checkpoint root; a second checkpoint is committed
+    once it serves, and the requests sent after the swap must equal a
+    fresh engine's on the new weights."""
+    import dataclasses
+
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli import summarize as TSUM
+    from hetu_galvatron_tpu_torch.core.arguments import args_from_cli
+    from hetu_galvatron_tpu_torch.models.builder import init_causal_lm
+    from hetu_galvatron_tpu_torch.observability.registry import (
+        MetricsRegistry,
+    )
+    from hetu_galvatron_tpu_torch.runtime.checkpoint import save_checkpoint
+    from hetu_galvatron_tpu_torch.serving.engine import ServingEngine
+
+    args = args_from_cli([GPT2_YAML], mode="train_dist")
+    cfg = args.model
+    root = os.path.join(tmp, "serve_ckpt")
+    first = init_causal_lm(cfg, seed=1, device=SERVE_DEVICE)
+    save_checkpoint(root, 1, first)
+    del first
+    prompts = [f"request {i}: the quick brown fox jumps over the lazy dog "
+               * (1 + i % 3) for i in range(8)]
+    late = list(range(4, 8))
+    req_path = os.path.join(tmp, "requests.jsonl")
+    with open(req_path, "w") as f:
+        for i, p in enumerate(prompts):
+            f.write(json.dumps({
+                "prompt": p, "max_new_tokens": CLI_NEW,
+                "arrival_offset_s": CLI_LATE_S if i in late else 0.05 * i})
+                + "\n")
+    metrics = os.path.join(tmp, "serve_cli_metrics.jsonl")
+    cmd = [sys.executable, "-m", "hetu_galvatron_tpu_torch.cli.serve",
+           GPT2_YAML, f"requests={req_path}", f"metrics={metrics}",
+           "stream=0", "serving.trace_requests=1", f"ckpt={root}",
+           "watch=0.2", *CLI_EXTRA]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    err_lines = []
+    try:
+        for line in proc.stderr:
+            err_lines.append(line)
+            if "watching" in line:
+                break
+        else:
+            raise SmokeFailure("cli.serve exited before watching: "
+                               + "".join(err_lines[-20:]))
+        t_watch = time.perf_counter() - t0
+        second = init_causal_lm(cfg, seed=2, device=SERVE_DEVICE)
+        save_checkpoint(root, 2, second)
+        t_commit = time.perf_counter() - t0
+        out, rest = proc.communicate(timeout=CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err_lines.append(rest)
+    err = "".join(err_lines)
+    with open(os.path.join(tmp, "serve_cli.log"), "w") as f:
+        f.write(out + err)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(f"cli.serve exit {proc.returncode}: {err[-3000:]}")
+    done = [json.loads(x) for x in out.splitlines()
+            if x.startswith("{") and '"done"' in x]
+    if len(done) != len(prompts) or any(d["status"] != "done" for d in done):
+        raise SmokeFailure(f"cli.serve answered {len(done)} of "
+                           f"{len(prompts)} requests: {done}")
+    records = stream_records(metrics)
+    swaps = [r for r in records if r.get("name") == "serve/weight_swaps"]
+    stalls = [r for r in records if r.get("name") == "serve/swap_stall_ms"]
+    n_swaps = swaps[-1]["value"] if swaps else 0
+    if n_swaps < 1 or not stalls:
+        raise SmokeFailure(f"no weight swap in the metrics ({n_swaps})")
+    ev = [r["data"] for r in records if r.get("kind") == "event"
+          and r.get("name") == "request"]
+    swap_tm = min(e["tm"] for e in ev if e["ev"] == "weight_swap")
+    after = sorted(e["rid"] for e in ev if e["ev"] == "submit"
+                   and e["tm"] > swap_tm)
+    if after != late:
+        raise SmokeFailure(f"requests submitted after the swap: {after}, "
+                           f"want {late}")
+    sv = dataclasses.replace(args.serving, eos_id=256)
+    eng = ServingEngine(second, cfg, sv, registry=MetricsRegistry())
+    hs = {i: eng.submit(list(prompts[i].encode()), max_new_tokens=CLI_NEW)
+          for i in late}
+    eng.run_until_idle()
+    eng.close()
+    by_rid = {d["rid"]: d for d in done}
+    for i in late:
+        want = hs[i].result(0)
+        want = want[:want.index(256)] if 256 in want else want
+        if by_rid[i]["tokens"] != want:
+            raise SmokeFailure(f"request {i}, sent after the swap, differs "
+                               "from a fresh engine on the new weights")
+    buf = io.StringIO()
+    head = TSUM.summarize(metrics, out=buf, timeline="all")
+    if head.get("timelines_complete") != len(prompts):
+        raise SmokeFailure(f"summarize --timeline all: {head}")
+    res = dict(wall_s=wall, watching_at_s=t_watch, committed_at_s=t_commit,
+               weight_swaps=n_swaps, swap_stall_ms=stalls[-1]["p50"],
+               swap_stall_max_ms=stalls[-1]["max"],
+               timelines_complete=head["timelines_complete"],
+               after_swap=after)
+    log(f"  (e) {smi}: cli.serve (GPT-2 small, child on cuda) answered all "
+        f"{len(prompts)} requests in {wall:.1f} s; serving from "
+        f"{t_watch:.1f} s, step_2 committed at {t_commit:.1f} s; "
+        f"serve/weight_swaps {n_swaps:.0f}, serve/swap_stall_ms "
+        f"{res['swap_stall_ms']:.3f}; requests {after} sent after the swap "
+        "equal a fresh engine on step_2 bit for bit; summarize --timeline "
+        f"all: {head['timelines_complete']} of {len(prompts)} complete")
+    del second
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_paths(smi: str):
+    """Phase 14 (a)-(e), in a temporary directory removed at exit."""
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        qwen = qwen_serving(smi, tmp)
+        torch.cuda.empty_cache()
+        t5 = t5_generate(smi)
+        cli = cli_serve_swap(smi, tmp)
+    wall = time.perf_counter() - t0
+    log(f"  phase 14 in {wall:.1f} s")
+    return dict(path=SERVE_PATH, device=smi, qwen=qwen, t5=t5, cli=cli,
+                wall_s=wall)
+
+
 def main() -> int:
     import torch
 
@@ -2523,6 +3389,16 @@ def main() -> int:
         raise SmokeFailure("a kernel spills registers (ptxas above)")
     zoo_only = sys.argv[1:] == ["--zoo-only"]
     obs_only = sys.argv[1:] == ["--obs-only"]
+    if sys.argv[1:] == ["--serve-only"]:
+        phase(SERVE_PHASE)
+        serving = serve_paths(smi)
+        log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+        log(json.dumps({"serving": serving}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:] == ["--lifecycle-only"]:
         # phase 8 alone, over its own copy of phase 6's corpus
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2711,6 +3587,9 @@ def main() -> int:
     zoo = zoo_paths(peak_flops, llama_prefix, llama_stats)
     obs = obs_paths(smi, os.path.join(tmp, "qwen_corpus"), tmp)
     tmpdir.cleanup()
+    torch.cuda.empty_cache()
+    phase(SERVE_PHASE)
+    serving = serve_paths(smi)
 
     # one block per path that runs the kernel: its launches beside the
     # times measured at that path's shape
@@ -2777,6 +3656,7 @@ def main() -> int:
     rows[3]["bf16"] = ce["timing"]["bf16"]["ce_fwd"]
     rows[4]["bf16"] = ce["timing"]["bf16"]["ce_bwd"]
     log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ package reads. A key that the JAX schema knows but the port does not read
 yet is accepted and dropped (``JAX_ONLY_KEYS``); a key neither knows
 raises, as does a value outside a field's choices.
 
+``ServingArgs`` takes the whole ``serving`` section (JAX
+``core/args_schema.py:435``); what the port does not run of it raises by
+name where it is used (``serving/engine.py``, ``cli/serve.py``).
+
 Port-only: the top-level ``device`` ("cuda" by default, "cpu" on request)
 names where the entry points run.
 """
@@ -326,6 +330,65 @@ class SupervisorArgs:
     }
 
 
+@dataclass
+class ServingArgs:
+    """JAX ``core/args_schema.py:435``: the serving engine's knobs
+    (``serving/``): continuous batching, the paged KV cache, admission
+    control, the prefix cache, speculative decoding, streaming and the
+    serving telemetry."""
+
+    # decode lanes: sequences decoded together at one fixed batch shape
+    max_batch_size: int = 8
+    # paged KV cache geometry; block 0 is reserved scratch. num_kv_blocks=0
+    # derives a pool that holds max_batch_size full-length sequences
+    kv_block_size: int = 16
+    num_kv_blocks: int = 0
+    # per-sequence cap (prompt + generation); 0 = model max positions
+    max_seq_len: int = 0
+    # default per-request generation budget (requests may override)
+    max_new_tokens: int = 64
+    # per-engine-step prefill budget in GFLOPs (forward FLOPs/token of the
+    # cost model) or tokens; 0 = that bound unlimited; the tighter wins
+    prefill_flops_budget_g: float = 0.0
+    max_prefill_tokens: int = 0
+    # the radix prefix cache (serving/prefix_cache.py); 0 blocks = bounded
+    # only by the pool
+    prefix_cache: bool = False
+    prefix_cache_max_blocks: int = 0
+    # lossless speculative decoding (serving/spec_decode.py)
+    spec_decode: bool = False
+    spec_k: int = 4
+    spec_draft: str = "ngram"
+    spec_ngram_max: int = 3
+    spec_ngram_min: int = 1
+    # sampling defaults (requests override temperature / eos); top_k is
+    # fixed per engine
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    eos_id: Optional[int] = None
+    # retire requests older than this many seconds (0 = no deadline)
+    request_timeout_s: float = 0.0
+    # registry flush cadence, in engine steps
+    flush_interval: int = 32
+    # JSONL metrics file of cli/serve.py; None = ./serve_metrics.jsonl
+    metrics_path: Optional[str] = None
+    # Prometheus /metrics endpoint: None off, 0 an ephemeral port, N port N
+    metrics_port: Optional[int] = None
+    metrics_host: str = "127.0.0.1"
+    # per-request lifecycle events in the metrics stream
+    trace_requests: bool = False
+    # SLO targets in ms (0 = none): attainment gauges
+    slo_ttft_ms: float = 0.0
+    slo_itl_ms: float = 0.0
+    # flight_<ts>.json dumps on a fatal engine error; None = ring only
+    flight_dir: Optional[str] = None
+    flight_events: int = 256
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "spec_draft": ("ngram", "model"),
+    }
+
+
 # keys the JAX schema defines that this package does not read (yet); a
 # config naming them loads, the values are dropped
 JAX_ONLY_KEYS: Dict[str, frozenset] = {
@@ -345,14 +408,7 @@ JAX_ONLY_KEYS: Dict[str, frozenset] = {
                           "profile_iters"}),
     "logging": frozenset(),
     "observability": frozenset(),
-    "serving": frozenset({
-        "max_batch_size", "kv_block_size", "num_kv_blocks", "max_seq_len",
-        "max_new_tokens", "prefill_flops_budget_g", "max_prefill_tokens",
-        "prefix_cache", "prefix_cache_max_blocks", "spec_decode", "spec_k",
-        "spec_draft", "spec_ngram_max", "spec_ngram_min", "temperature",
-        "top_k", "eos_id", "request_timeout_s", "flush_interval",
-        "metrics_path", "metrics_port", "metrics_host", "trace_requests",
-        "slo_ttft_ms", "slo_itl_ms", "flight_dir", "flight_events"}),
+    "serving": frozenset(),
     "rerun": frozenset(),
     "chaos": frozenset(),
     "supervisor": frozenset(),
@@ -437,6 +493,7 @@ SECTIONS = {
     "profile": ProfileArgs, "logging": LoggingArgs,
     "observability": ObservabilityArgs, "rerun": RerunArgs,
     "chaos": ChaosArgs, "supervisor": SupervisorArgs,
+    "serving": ServingArgs,
 }
 
 
@@ -457,6 +514,7 @@ class CoreArgs:
     rerun: RerunArgs = field(default_factory=RerunArgs)
     chaos: ChaosArgs = field(default_factory=ChaosArgs)
     supervisor: SupervisorArgs = field(default_factory=SupervisorArgs)
+    serving: ServingArgs = field(default_factory=ServingArgs)
     extra: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod

@@ -77,7 +77,8 @@ class FlightRecorder:
     :meth:`dump` a no-op, so a run that did not opt into an artifact
     directory never litters the filesystem. The dump's ``retained``
     section (JAX's pinned calibration records) stays empty: the port runs
-    no calibration, and the serving event taps come with serving.
+    no calibration. The serving engine taps its request events into the
+    ring (:meth:`attach`).
     """
 
     def __init__(self, *, capacity: int = 256,
@@ -101,7 +102,14 @@ class FlightRecorder:
     # -- recording ----------------------------------------------------------
 
     def record(self, name: str, data: Dict[str, Any]) -> None:
+        """Tap-shaped entry point (``EventStream.add_tap(recorder.record)``)."""
         self._ring.append({"name": name, "data": data})
+
+    def attach(self, events: Any) -> "FlightRecorder":
+        """Subscribe to an ``observability.events.EventStream``; returns
+        self for chaining."""
+        events.add_tap(self.record)
+        return self
 
     def note(self, name: str, **data: Any) -> None:
         """Record one entry, stamped in monotonic ms as JAX's events."""

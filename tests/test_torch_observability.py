@@ -590,4 +590,4 @@ def test_torch_jax_summarize_reads_the_port_stream(tmp_path, capsys):
     for line in ("-- goodput --", "-- spans (host ms) --", "train/fetch",
                  "train/step", "checkpoint/saved"):
         assert line in text
-    assert TSUM.main([]) == 2 and TSUM.main(["--timeline", "x"]) == 2
+    assert TSUM.main([]) == 2 and TSUM.main(["--timeline"]) == 2
