@@ -179,13 +179,37 @@ each of which ends the run with a non-zero exit when it fails:
     bit, ``serve/swap_stall_ms`` printed, ``cli/summarize.py --timeline
     all`` finds every timeline complete.
     ``python3 chip_smoke.py --serve-only`` runs phases 1, 2 and 14.
+15. main path of slice 10, Galvatron's profile -> search -> train loop
+    at world 1, on phase 6's cell (``qwen2.5-7b.yaml`` at full width cut
+    to 4 layers, fused cross-entropy, bf16, the seeded packed corpus):
+    (a) ``cli.profiler mode=profile_hardware`` writes the four world-1
+    files, held to the literal text JAX writes; (b) ``cli.profiler
+    mode=model_profiler`` times the forward (batch mode, bsz 1-8 at seq
+    4096, 2 and 4 layers; exactly 22 x 6 K1 launches a batch size) and
+    prints the per-layer and "other" ms, and what batch mode's fit would
+    read at a microbatch of 1; (c) the memory profile (seq 4096, bsz 1,
+    remat off and on; exact K1-K5 launches; ``parameter_size`` equal to a
+    layer's parameters x 4 / 2^20), and the step's peak a layer beside
+    it; (d) ``cli.search_dist`` at world 1
+    (bsz 1-16, ddp, the profile read in static mode) at 64 GB and at a
+    tighter budget it derives from (c), at which the plan checkpoints
+    some layers and not others, and the uncut 28 layers at 80 GB, which
+    must find no plan; (e) ``cli.train_dist`` with
+    ``parallel.config_mode=json`` trains each plan 6 steps: finite losses
+    within the step-0 rule, exact launches per microbatch, peak under 79
+    GiB; measured step against the plan's ``predicted_time_cost_ms`` and
+    peak against the budget, reported; (f) a plan whose flags are all
+    equal trains bit for bit as GLOBAL mode with the same batch, chunks
+    and ``parallel.global_checkpoint`` (losses and every parameter's
+    SHA-256). ``python3 chip_smoke.py --plan-only`` runs phases 1, 2 and
+    15.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
 layers, steps and evals say.
 
 The last lines are the serving JSON line (phase 14's numbers and gates),
-the kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
+the plan JSON line (phase 15's), the kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Each kernel's row carries, under
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
@@ -3348,6 +3372,419 @@ def serve_paths(smi: str):
                 wall_s=wall)
 
 
+PLAN_PATH = f"qwen2.5-7b-{QWEN_LAYERS}-layers-profile-search-train"
+PLAN_PHASE = ("phase 15: main path of slice 10 (profile -> search -> train: "
+              f"Qwen2.5-7B widths, {QWEN_LAYERS} layers, searched world-1 "
+              "plans through train_dist)")
+PLAN_BSZ_MAX = 8  # the computation profile's batch sizes 1..8
+PLAN_LAYERNUM = (2, 4)  # model_profiler.layernum_min / layernum_max
+PLAN_CALLS = 2 + 20  # a profiled forward: 2 warm-up calls, 20 timed
+PLAN_STEPS = 6  # each trained plan: 2 warm-up steps, 4 timed
+PLAN_BUDGET_GB = 64.0
+PLAN_UNCUT_GB = 80.0  # the uncut model searched at the whole card
+# the search reads (b)'s profile in static mode, that is its batch-1 point
+# as ms per sample: JAX's profiler (and the port, for parity) writes each
+# batch size's whole-batch ms, which batch mode's fit takes for ms per
+# sample, so its times at a microbatch of 1 come out negative (printed)
+PLAN_SEARCH = ["search.num_devices_per_node=1", "search.min_bsz=1",
+               "search.max_bsz=16", "search.bsz_scale=1",
+               "search.default_dp_type=ddp", "search.time_profile_mode=static",
+               "search.memory_profile_mode=static"]
+# overrides every command of phase 15 takes on top of its own, and the
+# device of its one direct allocation: a CPU dry run at tiny widths
+# monkeypatches them (with the Qwen shape constants and torch.cuda's calls)
+PLAN_EXTRA = []
+PLAN_DEVICE = "cuda"
+# the four files JAX's hardware profiler writes at world 1, as it writes
+# them (json.dump, indent 4)
+WORLD1_HARDWARE = {
+    "allreduce_bandwidth_1nodes_1gpus_per_node.json": "{}",
+    "p2p_bandwidth_1nodes_1gpus_per_node.json": "{}",
+    "sp_time_1nodes_1gpus_per_node.json": "{}",
+    "overlap_coefficient.json": '{\n    "overlap_coe": 1.0\n}',
+}
+
+
+def plan_launches(layers: int, ckpt: int, microbatches: int):
+    """K1-K5 launches of ``microbatches`` training microbatches of a plan
+    with ``ckpt`` of its ``layers`` layers checkpointed: one K1 a layer and
+    one more a checkpointed layer (the recompute), one K2 and one K3 a
+    layer, one K4 and one K5."""
+    per = {"flash_fwd": layers + ckpt, "flash_bwd_dkdv": layers,
+           "flash_bwd_dq": layers, "ce_fwd": 1, "ce_bwd": 1}
+    return {k: v * microbatches for k, v in per.items()}
+
+
+def tight_budget_gb(mem, k: int, hidden: int, micro: int):
+    """The smallest budget (GB, whole MB) at which the search's memory
+    model fits microbatches of ``micro`` with ``k`` of the layers
+    checkpointed and half a layer's remat saving to spare, from phase 15
+    (c)'s profile: per layer ceil(model states + activation), the vocab
+    layers' states, activation and the 1024 MB context reserve, the global
+    buffer, after the 20% the search reserves for the allocator's cache
+    above 20 GB."""
+    layer = mem["layertype_0_sp"][str(QS)]
+    act = layer["tp_activation_per_bsz_dict"]
+    off = mem["other_memory_pp_off_sp"][str(QS)]
+    states = 4 * layer["parameter_size"]
+    none_mb = math.ceil(states + act["1"] * micro)
+    ck_mb = math.ceil(states + act["checkpoint"] * micro)
+    need = (math.ceil(off["model_states"]["1"] + off["activation"]["1"]
+                      * micro + 1024.0)
+            + int(micro * hidden * QS * 4 / 2 ** 20 / 2)
+            + k * ck_mb + (QWEN_LAYERS - k) * none_mb)
+    target = need + (none_mb - ck_mb) // 2
+
+    def usable(max_mb):  # SearchEngine.solve_task's cache reserve
+        return max_mb - (int(max_mb * 0.2) if max_mb // 1024 > 20 else 0)
+
+    max_mb = target
+    while usable(max_mb) < target:
+        max_mb += 1
+    return max_mb / 1024, need
+
+
+def plan_search(tag, argv, budget_gb, tmp):
+    """``cli.search_dist`` at one budget; (exit code, plan path, plan)."""
+    from hetu_galvatron_tpu_torch.cli import search_dist
+
+    out_dir = os.path.join(tmp, f"plans_{tag}")
+    t0 = time.perf_counter()
+    rc = search_dist.main(argv + [f"search.memory_constraint={budget_gb}",
+                                  f"search.output_config_path={out_dir}"])
+    secs = time.perf_counter() - t0
+    found = sorted(glob.glob(os.path.join(out_dir, "galvatron_config_*")))
+    if (rc == 0) != bool(found):
+        raise SmokeFailure(f"search {tag}: exit {rc} with plans {found}")
+    if not found:
+        log(f"  search {tag} at {budget_gb} GB: no plan (exit {rc}, "
+            f"{secs:.2f} s)")
+        return rc, None, None
+    with open(found[0]) as f:
+        plan = json.load(f)
+    log(f"  search {tag} at {budget_gb} GB ({secs:.2f} s): bsz "
+        f"{plan['global_bsz']}, chunks {plan['chunks']}, checkpoint "
+        f"[{plan['checkpoint']}], predicted {plan['predicted_time_cost_ms']}"
+        f" ms a step ({os.path.basename(found[0])})")
+    return rc, found[0], plan
+
+
+def plan_train(tag, prefix, over, smi):
+    """``train`` on phase 6's cell under ``over`` (a JSON plan or GLOBAL
+    mode) for PLAN_STEPS steps: losses, launches, peak memory, step ms
+    and the parameters' digests, with the launch counters reset just
+    before and read just after."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    args = load_config(QWEN_YAML, [
+        f"model.num_hidden_layers={QWEN_LAYERS}", "model.use_fused_ce=true",
+        "parallel.mixed_precision=bf16", f"train.train_iters={PLAN_STEPS}",
+        "profile.profile=1", f"profile.profile_warmup={PROFILE_WARMUP}",
+        *packed_corpus_overrides(prefix), *over, *PLAN_EXTRA])
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(args)
+    torch.cuda.synchronize()
+    res = dict(losses=out["losses"], launches=dict(_build.launch_counts),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               step_ms=out["iter_ms"], batch_sizes=out["batch_sizes"],
+               predicted_ms=out["predicted_time_cost_ms"],
+               digests=param_digests(out["params"]))
+    del out
+    torch.cuda.empty_cache()
+    log(f"  train {tag}: losses {res['losses']}; step {res['step_ms']:.2f} "
+        f"ms (CUDA events, steps {PROFILE_WARMUP}..{PLAN_STEPS - 1}); peak "
+        f"{res['peak_gib']:.2f} GiB; launches {res['launches']} [{smi}]")
+    return res
+
+
+def plan_gates(tag, res, plan, budget_gb, cfg):
+    """(e)'s gates on one searched plan's run, and its reported ratios."""
+    flags = [int(x) for x in plan["checkpoint"].split(",")]
+    steps = PLAN_STEPS * plan["chunks"]
+    want = plan_launches(QWEN_LAYERS, sum(flags), steps)
+    losses = res["losses"]
+    expect0 = (math.log(cfg.padded_vocab_size)
+               + 0.5 * 0.02 ** 2 * cfg.hidden_size)
+    if len(losses) != PLAN_STEPS or not all(map(math.isfinite, losses)):
+        raise SmokeFailure(f"{tag}: losses {losses} not all finite")
+    if abs(losses[0] - expect0) > 0.5:
+        raise SmokeFailure(f"{tag}: step-0 loss {losses[0]:.4f} is not "
+                           f"within 0.5 of ln V + sigma^2/2 = {expect0:.4f}")
+    if res["batch_sizes"] != [plan["global_bsz"]] * PLAN_STEPS:
+        raise SmokeFailure(f"{tag}: batch sizes {res['batch_sizes']}")
+    if res["launches"] != want:
+        raise SmokeFailure(f"{tag}: launches {res['launches']}, want {want} "
+                           f"({steps} microbatches, {sum(flags)} of "
+                           f"{QWEN_LAYERS} layers checkpointed)")
+    if res["peak_gib"] >= MEM_LIMIT_GIB:
+        raise SmokeFailure(f"{tag}: peak {res['peak_gib']:.2f} GiB")
+    if res["predicted_ms"] != plan["predicted_time_cost_ms"]:
+        raise SmokeFailure(f"{tag}: the run read predicted "
+                           f"{res['predicted_ms']} ms, the plan holds "
+                           f"{plan['predicted_time_cost_ms']}")
+    res.update(budget_gb=budget_gb, checkpoint=flags,
+               global_bsz=plan["global_bsz"], chunks=plan["chunks"],
+               expected_step0_loss=expect0,
+               step_over_predicted=res["step_ms"] / plan[
+                   "predicted_time_cost_ms"],
+               peak_over_budget=res["peak_gib"] / budget_gb)
+    over = res["peak_over_budget"] > 1  # a finding, not a failure
+    log(f"  {tag}: measured / predicted step {res['step_over_predicted']:.4f}"
+        f" ({res['step_ms']:.2f} / {plan['predicted_time_cost_ms']} ms); "
+        f"peak / budget {res['peak_over_budget']:.4f} ({res['peak_gib']:.2f}"
+        f" GiB / {budget_gb} GB){'; OVER ITS BUDGET' if over else ''}")
+    return res
+
+
+def plan_paths(smi: str):
+    """Phase 15 (a)-(f), in a temporary directory removed at exit."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli import profiler as cli_profiler
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.core.profiler.model_profiler import (
+        ModelProfiler,
+    )
+    from hetu_galvatron_tpu_torch.core.search_engine.profiles import (
+        parse_time_config,
+    )
+    from hetu_galvatron_tpu_torch.models.builder import (
+        init_decoder_layer,
+        named_leaves,
+    )
+    from hetu_galvatron_tpu_torch.ops import _build
+
+    t_all = time.perf_counter()
+    cfg = load_config(QWEN_YAML, [
+        f"model.num_hidden_layers={QWEN_LAYERS}", *PLAN_EXTRA]).model
+    model = [QWEN_YAML, f"model.num_hidden_layers={QWEN_LAYERS}",
+             "model.use_fused_ce=true", *PLAN_EXTRA]
+    out = {"path": PLAN_PATH, "device": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plan_") as tmp:
+        hw, prof = os.path.join(tmp, "hardware"), os.path.join(tmp, "prof")
+        log("  (a) hardware profile at world 1")
+        if cli_profiler.main(model + [
+                "mode=profile_hardware",
+                "hardware_profiler.num_devices_per_node=1",
+                f"hardware_profiler.output_dir={hw}"]) != 0:
+            raise SmokeFailure("the hardware profiler failed")
+        for name, want in WORLD1_HARDWARE.items():
+            with open(os.path.join(hw, name)) as f:
+                got = f.read()
+            if got != want:
+                raise SmokeFailure(f"{name}: {got!r}, JAX writes {want!r}")
+        log(f"  the four world-1 files equal JAX's: {sorted(WORLD1_HARDWARE)}"
+            f" [{smi}]")
+
+        lo, hi = PLAN_LAYERNUM
+        profile = model + [
+            "mode=model_profiler", f"model_profiler.output_dir={prof}",
+            f"model_profiler.profile_seq_length_list=[{QS}]",
+            f"model_profiler.layernum_min={lo}",
+            f"model_profiler.layernum_max={hi}"]
+        log(f"  (b) computation profile: batch mode, bsz 1-{PLAN_BSZ_MAX} "
+            f"at seq {QS}, {lo} and {hi} layers")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli_profiler.main(profile + [
+                "model_profiler.profile_type=computation",
+                "model_profiler.profile_mode=batch",
+                "model_profiler.profile_min_batch_size=1",
+                f"model_profiler.profile_max_batch_size={PLAN_BSZ_MAX}"]):
+            raise SmokeFailure("the computation profile failed")
+        comp_s = time.perf_counter() - t0
+        comp_launches = dict(_build.launch_counts)
+        want = dict.fromkeys(comp_launches, 0)
+        want["flash_fwd"] = PLAN_CALLS * (lo + hi) * PLAN_BSZ_MAX
+        log(f"  launches {comp_launches} (want {want}: {PLAN_CALLS} calls "
+            f"of {lo} + {hi} layers at {PLAN_BSZ_MAX} batch sizes)")
+        if comp_launches != want:
+            raise SmokeFailure(f"computation profile: launches "
+                               f"{comp_launches}, want {want}")
+        (comp_path,) = glob.glob(os.path.join(prof, "computation_*.json"))
+        with open(comp_path) as f:
+            comp = json.load(f)
+        rows = {}
+        for b in range(1, PLAN_BSZ_MAX + 1):
+            layer = comp[f"layertype_0_bsz{b}_seq{QS}"]
+            other = comp[f"layertype_other_bsz{b}_seq{QS}"]
+            rows[b] = dict(layer_ms=layer, other_ms=other)
+            log(f"    bsz {b}: {layer:.3f} ms a layer, {other:.3f} ms other "
+                f"(forward, bf16, flash K1) [{smi}]")
+        # what batch mode would read: the fit of whole-batch ms x bsz
+        fit, other_fit = (v[0] for v in parse_time_config(
+            comp, mode="batch", num_layertype=1, seqlen_list=[QS]))
+        at1 = float(fit[0] + fit[1])
+        log(f"    batch-mode fit of ms x bsz: {float(fit[0]):.3f} bsz + "
+            f"{float(fit[1]):.3f}, so {at1:.3f} ms a layer at a microbatch "
+            f"of 1 (the batch-1 point: {rows[1]['layer_ms']:.3f} ms) [{smi}]")
+        out["computation"] = dict(
+            rows=rows, seconds=comp_s, launches=comp_launches,
+            batch_fit_layer=[float(x) for x in fit],
+            batch_fit_other=[float(x) for x in other_fit],
+            batch_fit_layer_ms_at_1=at1)
+
+        log(f"  (c) memory profile: seq {QS}, bsz 1, tp 1, checkpoint off "
+            "and on")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli_profiler.main(profile + [
+                "model_profiler.profile_type=memory",
+                "model_profiler.profile_batch_size=1"]):
+            raise SmokeFailure("the memory profile failed")
+        mem_s = time.perf_counter() - t0
+        mem_launches = dict(_build.launch_counts)
+        # a warm-up and a measured step at each of lo and hi layers, with
+        # and without remat
+        want = {k: 0 for k in mem_launches}
+        for layers in (lo, hi):
+            for ckpt in (0, layers):
+                for k, v in plan_launches(layers, ckpt, 2).items():
+                    want[k] += v
+        log(f"  launches {mem_launches} (want {want})")
+        if mem_launches != want:
+            raise SmokeFailure(f"memory profile: launches {mem_launches}, "
+                               f"want {want}")
+        (mem_path,) = glob.glob(os.path.join(prof, "memory_*.json"))
+        with open(mem_path) as f:
+            mem = json.load(f)
+        layer = mem["layertype_0_sp"][str(QS)]
+        gen = torch.Generator(device=PLAN_DEVICE).manual_seed(0)
+        n_layer = sum(t.numel() for _, t in named_leaves(
+            init_decoder_layer(gen, cfg, torch.device(PLAN_DEVICE))))
+        want_mb = n_layer * 4 / 2 ** 20
+        if layer["parameter_size"] != want_mb:
+            raise SmokeFailure(f"parameter_size {layer['parameter_size']} "
+                               f"!= {n_layer} parameters x 4 / 2^20")
+        act = layer["tp_activation_per_bsz_dict"]
+        off = mem["other_memory_pp_off_sp"][str(QS)]
+        log(f"    parameter_size {layer['parameter_size']:.3f} MB a layer "
+            f"({n_layer} parameters); activation a sample {act['1']:.1f} MB"
+            f" a layer without remat, {act['checkpoint']:.1f} MB with; other"
+            f" states {off['model_states']['1']:.1f} MB, activation "
+            f"{off['activation']['1']:.1f} MB a sample [{smi}]")
+        # the step's peak a layer, the quantity XLA's temps count in JAX:
+        # reported beside the profile (it falls in the AdamW update)
+        mp = ModelProfiler(load_config(QWEN_YAML, model[1:]))
+        peak = {}
+        for ck in (False, True):
+            m = [mp._step_memory_mb(mp._cfg(n, QS), 1, 1, ck)["peak"]
+                 for n in (lo, hi)]
+            peak[ck] = (m[1] - m[0]) / (hi - lo)
+        log(f"    the step's peak a layer: {peak[False]:.1f} MB without "
+            f"remat, {peak[True]:.1f} MB with [{smi}]")
+        out["memory"] = dict(parameter_size_mb=layer["parameter_size"],
+                             layer_parameters=n_layer,
+                             activation_mb=act["1"],
+                             activation_remat_mb=act["checkpoint"],
+                             other_states_mb=off["model_states"]["1"],
+                             other_activation_mb=off["activation"]["1"],
+                             step_peak_layer_mb=peak[False],
+                             step_peak_layer_remat_mb=peak[True],
+                             seconds=mem_s, launches=mem_launches)
+        torch.cuda.empty_cache()
+
+        log("  (d) search at world 1")
+        tag = "1nodes_1gpus_per_node"
+        search = [QWEN_YAML, f"model.num_hidden_layers={QWEN_LAYERS}",
+                  *PLAN_SEARCH, f"search.time_profiling_path={comp_path}",
+                  f"search.memory_profiling_path={mem_path}",
+                  "search.allreduce_bandwidth_config_path="
+                  f"{hw}/allreduce_bandwidth_{tag}.json",
+                  f"search.p2p_bandwidth_config_path={hw}/p2p_bandwidth_"
+                  f"{tag}.json",
+                  f"search.overlap_coe_path={hw}/overlap_coefficient.json",
+                  f"search.sp_time_path={hw}/sp_time_{tag}.json",
+                  *PLAN_EXTRA]
+        plans = {}
+        rc, path, plan = plan_search("budget", search, PLAN_BUDGET_GB, tmp)
+        if plan is None:
+            raise SmokeFailure(f"no plan at {PLAN_BUDGET_GB} GB")
+        plans["budget"] = (path, plan, PLAN_BUDGET_GB)
+        # the tight budget: half the layers checkpointed at the 64 GB
+        # plan's microbatch, by the search's own memory model
+        micro = plan["global_bsz"] // plan["chunks"]
+        k = QWEN_LAYERS // 2
+        gb, need = tight_budget_gb(mem, k, cfg.hidden_size, micro)
+        rc, path, plan = plan_search("tight", search, gb, tmp)
+        log(f"  the tight budget {gb} GB: the search's memory model needs "
+            f"{need} MB for microbatches of {micro} with {k} of "
+            f"{QWEN_LAYERS} layers checkpointed")
+        if plan is None or set(plan["checkpoint"].split(",")) != {"0", "1"}:
+            raise SmokeFailure(f"at {gb} GB the plan does not checkpoint "
+                               f"some layers and not others: {plan}")
+        plans["tight"] = (path, plan, gb)
+        rc, path, plan = plan_search(
+            "uncut", [a.replace(f"model.num_hidden_layers={QWEN_LAYERS}",
+                                "model.num_hidden_layers=28")
+                      for a in search], PLAN_UNCUT_GB, tmp)
+        if rc != 1 or path is not None:
+            raise SmokeFailure(f"the uncut model found a plan at "
+                               f"{PLAN_UNCUT_GB} GB (exit {rc})")
+        out["search"] = dict(
+            tight_model_mb=need,
+            uncut=dict(layers=28, budget_gb=PLAN_UNCUT_GB, exit_code=rc),
+            plans={k: dict(budget_gb=v[2], global_bsz=v[1]["global_bsz"],
+                           chunks=v[1]["chunks"],
+                           checkpoint=v[1]["checkpoint"],
+                           predicted_time_cost_ms=v[1][
+                               "predicted_time_cost_ms"])
+                   for k, v in plans.items()})
+
+        log("  (e) train each searched plan through cli/train_dist "
+            "(parallel.config_mode=json)")
+        prefix = write_qwen_corpus(tmp)[0]
+        runs = {}
+        for name, (path, plan, gb) in plans.items():
+            res = plan_train(name, prefix, [
+                "parallel.config_mode=json",
+                f"parallel.galvatron_config_path={path}"], smi)
+            runs[name] = plan_gates(name, res, plan, gb, cfg)
+
+        log("  (f) a plan with equal remat flags against GLOBAL mode")
+        same = [n for n, (_, plan, _) in plans.items()
+                if len(set(plan["checkpoint"].split(","))) == 1]
+        if not same:
+            raise SmokeFailure("no searched plan has equal flags")
+        name = same[0]
+        plan = plans[name][1]
+        flag = plan["checkpoint"].split(",")[0]
+        ref = plan_train("global", prefix, [
+            f"parallel.global_train_batch_size={plan['global_bsz']}",
+            f"parallel.chunks={plan['chunks']}",
+            f"parallel.global_checkpoint={flag}"], smi)
+        if ref["losses"] != runs[name]["losses"]:
+            raise SmokeFailure(f"GLOBAL losses {ref['losses']} != the "
+                               f"{name} plan's {runs[name]['losses']}")
+        if ref["digests"] != runs[name]["digests"]:
+            raise SmokeFailure(f"GLOBAL parameters differ from the {name} "
+                               "plan's")
+        log(f"  the {name} plan (checkpoint {flag} everywhere) and GLOBAL "
+            "mode: losses and every parameter's SHA-256 equal")
+        for r in runs.values():
+            r.pop("digests")
+        out["train"] = runs
+        out["same_as_global"] = dict(plan=name, losses=ref["losses"],
+                                     global_step_ms=ref["step_ms"])
+        per_step = {k: v // PLAN_STEPS
+                    for k, v in runs["budget"]["launches"].items()}
+        total = {k: comp_launches[k] + mem_launches[k] + ref["launches"][k]
+                 + sum(r["launches"][k] for r in runs.values())
+                 for k in comp_launches}
+        out["launches"] = total
+        out["launches_per_step"] = per_step
+        out["eval_launches"] = dict.fromkeys(total, 0)
+    out["wall_s"] = time.perf_counter() - t_all
+    log(f"  phase 15 in {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3394,6 +3831,16 @@ def main() -> int:
         serving = serve_paths(smi)
         log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
         log(json.dumps({"serving": serving}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--plan-only"]:
+        phase(PLAN_PHASE)
+        plan = plan_paths(smi)
+        log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+        log(json.dumps({"plan": plan}))
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -3590,6 +4037,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(SERVE_PHASE)
     serving = serve_paths(smi)
+    torch.cuda.empty_cache()
+    phase(PLAN_PHASE)
+    plan = plan_paths(smi)
 
     # one block per path that runs the kernel: its launches beside the
     # times measured at that path's shape
@@ -3650,6 +4100,7 @@ def main() -> int:
     for k, blocks in obs_blocks(checks, obs, qwen_flash, ce,
                                 (times, lib, bnd)).items():
         earlier[k].update(blocks)
+        earlier[k][PLAN_PATH] = qwen_block(k, plan, checks, qwen_flash, ce)
     rows = kernel_rows(checks, zoo_k, zoo, earlier)
     rows[0]["autograd_checks"] = auto
     rows[3]["autograd_checks"] = ce["zloss"]
@@ -3657,6 +4108,7 @@ def main() -> int:
     rows[4]["bf16"] = ce["timing"]["bf16"]["ce_bwd"]
     log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"plan": plan}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -3706,6 +4158,21 @@ def zoo_paths(peak_flops, llama_prefix, llama_stats):
 LLAMA_PATH = f"llama3.1-70b-{LLAMA_LAYERS}-layers"
 
 
+def qwen_block(k, run, checks, qwen_flash, ce):
+    """Kernel ``k``'s block for a run at the Qwen path's shapes: its
+    launches beside phase 3's times there (K1-K3 bf16 with packed
+    segments, K4/K5 over fp32 logits)."""
+    if k in FLASH:
+        timing = qwen_flash["timing"][k]
+        err = max_err(checks, k, timing["shape"], ("elementwise",))
+        shape = timing["shape"]
+    else:
+        timing = ce["timing"]["fp32"][k]
+        err = max_err(checks, k, "qwen fp32")
+        shape = f"T={QT} V={QV} fp32 logits (the path's dtype)"
+    return path_block(k, run, timing, err, shape)
+
+
 def obs_blocks(checks, obs, qwen_flash, ce, gpt2_times):
     """Phases 12-13's blocks per kernel: the ramp path's launches (run b,
     observability on) beside the times at the Qwen shape, and the
@@ -3714,15 +4181,7 @@ def obs_blocks(checks, obs, qwen_flash, ce, gpt2_times):
     times, lib, bnd = gpt2_times
     out = {}
     for k in KERNELS:
-        if k in FLASH:
-            timing = qwen_flash["timing"][k]
-            err = max_err(checks, k, timing["shape"], ("elementwise",))
-            shape = timing["shape"]
-        else:
-            timing = ce["timing"]["fp32"][k]
-            err = max_err(checks, k, "qwen fp32")
-            shape = f"T={QT} V={QV} fp32 logits (the path's dtype)"
-        block = path_block(k, obs["ramp"], timing, err, shape)
+        block = qwen_block(k, obs["ramp"], checks, qwen_flash, ce)
         block["launches_per_microbatch"] = \
             obs["ramp"]["launches_per_microbatch"][k]
         out[k] = {RAMP_PATH: block}

@@ -18,6 +18,13 @@ self-attention and the cross-attention, and the plan's combined-stack
 remat flags split per stack. The run goes to the GPU unless
 ``device=cpu`` is given.
 
+``parallel.config_mode=json parallel.galvatron_config_path=<plan>`` trains
+a plan written by ``cli/search_dist.py`` (``runtime/hybrid_config.py``:
+its global batch, chunks and per-layer remat flags; a plan wider than one
+device raises by name). The run logs the plan's ``describe()`` and, at
+the end, its ``predicted_time_cost_ms`` beside the measured step time
+(``profile.profile=1``); ``train()`` returns the prediction too.
+
 The checkpoint and fault lifecycle (JAX ``cli/train_dist.py:391-760`` and
 ``main`` :1039-1060):
 
@@ -636,6 +643,13 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         state.log(f"test loss {test_loss:.4f}")
     if args.profile.profile:
         state.log(f"mean iter time: {profiler.filtered_time_ms():.2f} ms")
+    predicted = hpc.predicted_time_cost_ms
+    if predicted is not None:
+        measured = profiler.filtered_time_ms()
+        state.log(f"searched plan: predicted step {predicted:.3f} ms" + (
+            f", measured {measured:.3f} ms (measured / predicted "
+            f"{measured / predicted:.3f})" if measured else
+            " (profile.profile=1 measures the step)"))
     if rerun.enabled and rerun.records:
         state.log(f"rerun report: {rerun.report()}")
     return {"losses": losses, "val_losses": val_losses,
@@ -650,6 +664,7 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
             "flight_dumps": list(recorder.dumped) if recorder else [],
             "trace_path": profiler.trace_path,
             "trace_window_ms": profiler.trace_window_ms,
+            "predicted_time_cost_ms": predicted,
             "exit_code": exit_code}
 
 

@@ -8,7 +8,10 @@ raises, as does a value outside a field's choices.
 
 ``ServingArgs`` takes the whole ``serving`` section (JAX
 ``core/args_schema.py:435``); what the port does not run of it raises by
-name where it is used (``serving/engine.py``, ``cli/serve.py``).
+name where it is used (``serving/engine.py``, ``cli/serve.py``). So do
+``SearchArgs``, ``ModelProfileArgs`` and ``HardwareProfileArgs`` (JAX
+:620, :733, :756) for the search and the profilers; ``args_from_cli``
+takes their modes (``search``, ``model_profiler``, ``profile_hardware``).
 
 Port-only: the top-level ``device`` ("cuda" by default, "cpu" on request)
 names where the entry points run.
@@ -17,7 +20,7 @@ names where the entry points run.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, fields
-from typing import Any, ClassVar, Dict, List, Optional, Tuple
+from typing import Any, ClassVar, Dict, List, Literal, Optional, Tuple
 
 
 @dataclass
@@ -389,6 +392,143 @@ class ServingArgs:
     }
 
 
+
+@dataclass
+class SearchArgs:
+    """JAX ``core/args_schema.py:620``: the strategy search's knobs
+    (``core/search_engine/``). ``hier_dp`` / ``hier_bucket_mb``,
+    ``hbm_budget_gb > 0`` and ``use_calibrated`` with a calibration
+    directory are read here and raise by name where they are used."""
+
+    num_nodes: int = 1
+    num_devices_per_node: int = 8
+    memory_constraint: float = 16.0  # GB of device memory per card
+    min_bsz: int = 8
+    max_bsz: int = 64
+    bsz_scale: int = 8
+    settle_bsz: int = -1  # >0: search exactly this global batch
+    settle_chunks: int = -1
+    search_space: Literal["full", "dp+tp", "dp+pp", "3d", "dp", "tp", "pp",
+                          "sdp"] = "full"
+    disable_dp: int = 0
+    disable_tp: int = 0
+    disable_pp: int = 0
+    disable_sdp: int = 0
+    disable_ckpt: int = 0
+    disable_tp_consec: int = 1
+    disable_cp: int = 1
+    disable_ulysses: int = 0
+    disable_vtp: int = 0
+    disable_vsp: int = 0
+    max_tp_deg: int = 8
+    max_pp_deg: int = 8
+    max_sp_deg: int = 8
+    max_cp_deg: int = 8
+    sequence_parallel: bool = True
+    global_memory_buffer: bool = True
+    async_grad_reduce: bool = True
+    time_profile_mode: Literal["static", "batch", "sequence"] = "static"
+    memory_profile_mode: Literal["static", "batch", "sequence"] = "static"
+    default_dp_type: Literal["ddp", "zero2", "zero3"] = "ddp"
+    fine_grained_mode: int = 1
+    sequence_parallel_mode: Literal["megatron", "ulysses"] = "megatron"
+    pipeline_type: Literal["gpipe", "pipedream_flush"] = "pipedream_flush"
+    mixed_precision: Literal["bf16", "fp32"] = "bf16"
+    use_cpp_core: bool = True
+    parallel_search: bool = False
+    log_dir: str = "logs"
+    # a JSONL record per explored task and the winner
+    search_trace_path: Optional[str] = None
+    output_config_path: Optional[str] = None
+    time_profiling_path: Optional[str] = None
+    memory_profiling_path: Optional[str] = None
+    allreduce_bandwidth_config_path: Optional[str] = None
+    use_calibrated: int = 1
+    p2p_bandwidth_config_path: Optional[str] = None
+    overlap_coe_path: Optional[str] = None
+    sp_time_path: Optional[str] = None
+    sequence_length: Optional[int] = None
+    costmodel_coe: float = 1.0
+    dispatch_us: float = 0.0
+    pipeline_schedule_impl: Literal["host", "compiled"] = "host"
+    hbm_budget_gb: float = 0.0
+    tp_overlap: int = 0
+    hier_dp: int = 0
+    hier_bucket_mb: float = 0.0
+    # feasible runner-up plans embedded in the winning plan's JSON
+    runner_up_k: int = 3
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "search_space": ("full", "dp+tp", "dp+pp", "3d", "dp", "tp", "pp",
+                         "sdp"),
+        "time_profile_mode": ("static", "batch", "sequence"),
+        "memory_profile_mode": ("static", "batch", "sequence"),
+        "default_dp_type": ("ddp", "zero2", "zero3"),
+        "sequence_parallel_mode": ("megatron", "ulysses"),
+        "pipeline_type": ("gpipe", "pipedream_flush"),
+        "mixed_precision": ("bf16", "fp32"),
+        "pipeline_schedule_impl": ("host", "compiled"),
+    }
+
+
+@dataclass
+class ModelProfileArgs:
+    """JAX ``core/args_schema.py:733``: the model profiler's sweep
+    (``core/profiler/model_profiler.py``)."""
+
+    profile_type: Literal["computation", "memory"] = "computation"
+    profile_mode: Literal["static", "batch", "sequence"] = "static"
+    profile_batch_size: int = 1
+    profile_min_batch_size: int = 1
+    profile_max_batch_size: int = 8
+    profile_batch_size_step: int = 1
+    profile_seq_length_list: List[int] = field(
+        default_factory=lambda: [1024])
+    profile_min_seq_length: int = 1024
+    profile_max_seq_length: int = 8192
+    profile_seq_length_step: int = 1024
+    layernum_min: int = 2
+    layernum_max: int = 4
+    max_tp_deg: int = 8
+    profile_dp_type: Literal["ddp", "zero2", "zero3"] = "ddp"
+    mixed_precision: Literal["bf16", "fp32"] = "bf16"
+    use_flash_attn: bool = True
+    output_dir: str = "configs"
+    extra_args_str: str = ""
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "profile_type": ("computation", "memory"),
+        "profile_mode": ("static", "batch", "sequence"),
+        "profile_dp_type": ("ddp", "zero2", "zero3"),
+        "mixed_precision": ("bf16", "fp32"),
+    }
+
+
+@dataclass
+class HardwareProfileArgs:
+    """JAX ``core/args_schema.py:756``: the hardware profiler's knobs
+    (``core/profiler/hardware_profiler.py``)."""
+
+    num_nodes: int = 1
+    num_devices_per_node: int = 8
+    max_pp_deg: int = 8
+    max_tp_deg: int = 8
+    start_mb: int = 1
+    end_mb: int = 512
+    scale: int = 2
+    sub_mb_floor_kb: int = 64
+    profile_algos: int = 1
+    warmup_iters: int = 5
+    profile_iters: int = 20
+    avg_or_min_or_first: Literal["avg", "min", "first"] = "avg"
+    output_dir: str = "hardware_configs"
+    backend: Literal["auto", "tpu", "cpu"] = "auto"
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "avg_or_min_or_first": ("avg", "min", "first"),
+        "backend": ("auto", "tpu", "cpu"),
+    }
+
 # keys the JAX schema defines that this package does not read (yet); a
 # config naming them loads, the values are dropped
 JAX_ONLY_KEYS: Dict[str, frozenset] = {
@@ -412,36 +552,6 @@ JAX_ONLY_KEYS: Dict[str, frozenset] = {
     "rerun": frozenset(),
     "chaos": frozenset(),
     "supervisor": frozenset(),
-    "search": frozenset({
-        "num_nodes", "num_devices_per_node", "memory_constraint", "min_bsz",
-        "max_bsz", "bsz_scale", "settle_bsz", "settle_chunks",
-        "search_space", "disable_dp", "disable_tp", "disable_pp",
-        "disable_sdp", "disable_ckpt", "disable_tp_consec", "disable_cp",
-        "disable_ulysses", "disable_vtp", "disable_vsp", "max_tp_deg",
-        "max_pp_deg", "max_sp_deg", "max_cp_deg", "sequence_parallel",
-        "global_memory_buffer", "async_grad_reduce", "time_profile_mode",
-        "memory_profile_mode", "default_dp_type", "fine_grained_mode",
-        "sequence_parallel_mode", "pipeline_type", "mixed_precision",
-        "use_cpp_core", "parallel_search", "log_dir", "search_trace_path",
-        "output_config_path", "time_profiling_path",
-        "memory_profiling_path", "allreduce_bandwidth_config_path",
-        "use_calibrated", "p2p_bandwidth_config_path", "overlap_coe_path",
-        "sp_time_path", "sequence_length", "costmodel_coe", "dispatch_us",
-        "pipeline_schedule_impl", "hbm_budget_gb", "tp_overlap", "hier_dp",
-        "hier_bucket_mb", "runner_up_k"}),
-    "model_profiler": frozenset({
-        "profile_type", "profile_mode", "profile_batch_size",
-        "profile_min_batch_size", "profile_max_batch_size",
-        "profile_batch_size_step", "profile_seq_length_list",
-        "profile_min_seq_length", "profile_max_seq_length",
-        "profile_seq_length_step", "layernum_min", "layernum_max",
-        "max_tp_deg", "profile_dp_type", "mixed_precision",
-        "use_flash_attn", "output_dir", "extra_args_str"}),
-    "hardware_profiler": frozenset({
-        "num_nodes", "num_devices_per_node", "max_pp_deg", "max_tp_deg",
-        "start_mb", "end_mb", "scale", "sub_mb_floor_kb", "profile_algos",
-        "warmup_iters", "profile_iters", "avg_or_min_or_first", "output_dir",
-        "backend"}),
 }
 
 MODES = ("train_dist", "search", "model_profiler", "profile_hardware")
@@ -493,7 +603,9 @@ SECTIONS = {
     "profile": ProfileArgs, "logging": LoggingArgs,
     "observability": ObservabilityArgs, "rerun": RerunArgs,
     "chaos": ChaosArgs, "supervisor": SupervisorArgs,
-    "serving": ServingArgs,
+    "serving": ServingArgs, "search": SearchArgs,
+    "model_profiler": ModelProfileArgs,
+    "hardware_profiler": HardwareProfileArgs,
 }
 
 
@@ -515,6 +627,11 @@ class CoreArgs:
     chaos: ChaosArgs = field(default_factory=ChaosArgs)
     supervisor: SupervisorArgs = field(default_factory=SupervisorArgs)
     serving: ServingArgs = field(default_factory=ServingArgs)
+    search: SearchArgs = field(default_factory=SearchArgs)
+    model_profiler: ModelProfileArgs = field(
+        default_factory=ModelProfileArgs)
+    hardware_profiler: HardwareProfileArgs = field(
+        default_factory=HardwareProfileArgs)
     extra: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod

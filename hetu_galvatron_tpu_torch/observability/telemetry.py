@@ -2,8 +2,9 @@
 
 Port of ``hetu_galvatron_tpu/observability/telemetry.py``
 (``peak_device_tflops`` :58, ``TrainingTelemetry`` :68,
-``emit_plan_telemetry`` :641) and of the FLOPs count it reads,
-``core/cost_model/cost.py::model_flops_per_token`` :894.
+``emit_plan_telemetry`` :641). The FLOPs count it reads is the cost
+model's, ``core/cost_model/cost.py::model_flops_per_token`` (JAX :894),
+imported from the port's copy of the cost model.
 :class:`TrainingTelemetry` is a train-loop hook (``hook(it, metrics)``)
 with JAX's gauge names:
 
@@ -40,6 +41,9 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+from hetu_galvatron_tpu_torch.core.cost_model.cost import (  # noqa: F401
+    model_flops_per_token,
+)
 from hetu_galvatron_tpu_torch.observability.registry import (
     MetricsRegistry,
     get_registry,
@@ -66,43 +70,6 @@ def peak_device_tflops(device_kind: str) -> Optional[float]:
         if all(sub in kind for sub in subs):
             return tf
     return None
-
-
-def model_flops_per_token(model: Any, seq_length: Optional[int] = None
-                          ) -> float:
-    """Matmul FLOPs per token for one training step (forward + backward,
-    backward counted as 2x forward), as JAX
-    ``core/cost_model/cost.py::model_flops_per_token`` counts them: the
-    [S, S] attention products dense (no causal discount), non-matmul work
-    ignored, MoE layers at their ACTIVE experts (top-k + shared) plus the
-    router, every ``moe_layer_freq``-th layer MoE, and a t5 model's
-    ``num_encoder_layers`` on top of its decoder stack."""
-    h = model.hidden_size
-    s = seq_length or model.seq_length
-    nd = model.num_attention_heads * model.head_dim
-    kd = model.kv_heads * model.head_dim
-    # q/k/v/out projections + the two [S, S] batched matmuls (QK^T, PV)
-    attn = 2 * h * nd + 2 * 2 * h * kd + 2 * nd * h + 2 * 2 * s * nd
-    gated = model.hidden_act in ("swiglu", "geglu")
-
-    def mlp_flops(ffn: int) -> float:
-        return (3 if gated else 2) * 2 * h * ffn
-
-    dense_layer = attn + mlp_flops(model.ffn_dim)
-    layers = model.num_hidden_layers + (model.num_encoder_layers or 0
-                                        if model.model_type == "t5" else 0)
-    if model.num_experts:
-        moe_ffn = model.moe_ffn_hidden_size or model.ffn_dim
-        active = model.moe_topk + model.num_shared_experts
-        moe_layer = (attn + 2 * h * model.num_experts  # router
-                     + active * mlp_flops(moe_ffn))
-        freq = max(model.moe_layer_freq, 1)
-        n_moe = layers // freq
-        fwd = n_moe * moe_layer + (layers - n_moe) * dense_layer
-    else:
-        fwd = layers * dense_layer
-    fwd += 2 * h * model.padded_vocab_size  # LM head
-    return 3.0 * fwd
 
 
 class _Lagged:

@@ -11,6 +11,10 @@ Pointers and the CUDA stream cross as ``ctypes.c_void_p``; every launch
 function returns ``cudaGetLastError()`` after its launch, and
 :func:`check_launch` raises when it is not 0 and otherwise counts the launch
 in :data:`launch_counts`, the one registry of kernel launches.
+
+:func:`build_host_library` builds the host-side C++ helpers of ``csrc/``
+(the search's DP core, ``csrc/dp_core.cpp``) with the host compiler and
+the flags of the JAX package's ``csrc/Makefile``, into the same cache.
 """
 
 from __future__ import annotations
@@ -145,6 +149,40 @@ def load_library(rebuild: bool = False) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+# csrc/Makefile's flags for the host-side C++ helpers (no -ffast-math: the
+# search's DP must sum as the JAX package's build does)
+CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared"]
+
+
+def build_host_library(source: str) -> str:
+    """Compile the C++ source ``csrc/<source>`` with the host compiler
+    (``$CXX``, else ``g++``) into ``_build/``, cached by a hash of the
+    source and the flags; returns the library's path. Raises with the
+    compiler's output when it is missing or fails."""
+    src = os.path.join(CSRC_DIR, source)
+    with open(src, "rb") as f:
+        h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + f.read())
+    stem = os.path.splitext(source)[0]
+    lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    cxx = os.environ.get("CXX") or "g++"
+    if shutil.which(cxx) is None:
+        raise RuntimeError(
+            f"the host C++ compiler {cxx!r} was not found: {source} of "
+            "hetu_galvatron_tpu_torch is built with it at first use")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp_lib, src],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{cxx} failed on {source}:\n{res.stdout}"
+                               f"{res.stderr}")
+        os.replace(tmp_lib, lib_path)  # atomic: concurrent builds agree
+    return lib_path
 
 
 def reset_launch_counts() -> None:

@@ -148,27 +148,17 @@ class WorldSizeMismatchError(ValueError):
 
 
 def _plan_fingerprint(hpc) -> Dict[str, Any]:
-    """The JAX package's plan fingerprint (``strategy_list2config`` of the
-    per-layer strategies plus ``world_size``) for the port's one plan: one
-    device, no pipeline, no tensor / context / expert parallelism, per-layer
-    remat flags (over t5's combined stack, with its split point)."""
-    flags = list(hpc.checkpoint_flags)
+    """The JAX package's plan fingerprint: ``strategy_list2config`` of the
+    per-layer and vocab strategies, plus ``world_size``."""
+    from hetu_galvatron_tpu_torch.utils.strategy import strategy_list2config
 
-    def enc(values):
-        return ",".join(str(int(v)) for v in values)
-
-    ones, zeros = enc([1] * len(flags)), enc([0] * len(flags))
-    return {
-        "pp_deg": int(hpc.pp_deg), "tp_sizes_enc": ones,
-        "tp_consecutive_flags": ones, "dp_types_enc": zeros,
-        "use_sp": zeros, "cp_sizes_enc": ones, "ep_sizes_enc": ones,
-        "tp_of_ep_sizes_enc": ones, "checkpoint": enc(flags),
-        "global_bsz": int(hpc.global_bsz), "chunks": int(hpc.chunks),
-        "pp_division": str(len(flags)), "pipeline_type": "gpipe",
-        "default_dp_type": "ddp", "vtp": 1, "vsp": 0, "vcp": 1,
-        "embed_sdp": 0, "world_size": int(hpc.world_size),
-    } | ({"num_encoder_layers": int(hpc.num_encoder_layers)}
-         if hpc.num_encoder_layers else {})
+    cfg = strategy_list2config(
+        hpc.layers, global_bsz=hpc.global_bsz, chunks=hpc.chunks,
+        pipeline_type=hpc.pipeline_type,
+        default_dp_type=hpc.default_dp_type, vocab=hpc.vocab,
+        num_encoder_layers=hpc.num_encoder_layers or None)
+    cfg["world_size"] = hpc.world_size
+    return cfg
 
 
 class PlanMismatchError(ValueError):

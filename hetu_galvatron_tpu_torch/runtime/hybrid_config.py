@@ -1,26 +1,48 @@
-"""Hybrid-parallel plan: the single-device GLOBAL-mode case.
+"""Hybrid-parallel plan: GLOBAL mode and searched JSON plans on one device.
 
-Counterpart of ``hetu_galvatron_tpu/runtime/hybrid_config.py``, for the one
-plan this slice of the port runs: one device, no pipeline, no tensor or
-context parallelism, with per-layer activation checkpointing
-(``parallel.global_checkpoint`` sets it on every layer, as the JAX plan's
-``LayerStrategy.checkpoint``). For t5 the flags span the combined stack,
-encoder layers first (``num_encoder_layers``, ``enc_flags`` /
-``dec_flags``), as the JAX plan's ``layers`` do. Anything wider (world > 1, pp > 1,
-tp/cp/ulysses/ep, ZeRO-3, a searched JSON plan) raises and names the later
-slice (the SPMD plans on NCCL and the pipeline engines of ROADMAP.md
-queue 1).
+Counterpart of ``hetu_galvatron_tpu/runtime/hybrid_config.py`` for the
+plans one device runs: no pipeline, no tensor, context, sequence or expert
+parallelism, with per-layer activation checkpointing. GLOBAL mode sets
+``parallel.global_checkpoint`` on every layer. JSON mode
+(``parallel.config_mode=json`` or ``parallel.galvatron_config_path``)
+reads a searched ``galvatron_config_*.json`` through
+``utils/strategy.config2strategy``: ``global_bsz`` and ``chunks`` come
+from the plan (JAX :131-160), ``checkpoint_flags`` is its per-layer
+``checkpoint`` vector, and its ``predicted_time_cost_ms`` rides along for
+the launcher's log. ``dp_type`` zero2 or zero3 at dp 1 is plain data
+parallelism and runs. For t5 the flags span the combined stack, encoder
+layers first (``num_encoder_layers``, ``enc_flags`` / ``dec_flags``), as
+the JAX plan's ``layers`` do.
+
+Anything wider raises ``NotImplementedError`` naming the setting: a world
+above 1, GLOBAL-mode pp / tp / cp / ep / virtual pp degrees, ulysses or
+sdp, and a plan with pp, tp, cp, sp or ep above 1 on a layer, vocab
+tp / sp / cp above 1, virtual stages, or the hierarchical dp reduction
+(the SPMD plans on NCCL and the pipeline engines, ROADMAP items 10 and
+12).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Optional
 
+from hetu_galvatron_tpu_torch.analysis import eligibility
 from hetu_galvatron_tpu_torch.core.args_schema import CoreArgs
+from hetu_galvatron_tpu_torch.utils.strategy import (
+    EmbeddingLMHeadStrategy,
+    LayerStrategy,
+    PlanFormatError,
+    config2strategy,
+    default_pp_division,
+    load_strategy_config,
+    print_strategies,
+)
 
 LATER = "is not ported yet (a later slice: SPMD plans on NCCL / pipeline)"
+ITEM10 = ("needs several devices: the SPMD plans on NCCL are not ported "
+          "yet (ROADMAP item 10)")
 
 
 @dataclass
@@ -29,9 +51,22 @@ class HybridParallelConfig:
     chunks: int
     global_bsz: int
     world_size: int
-    checkpoint_flags: List[bool]  # per layer: remat it
-    # t5: the flags span encoder + decoder layers; the split point
+    # the per-layer strategies (one device each); t5: encoder + decoder
+    # layers, and the split point
+    layers: List[LayerStrategy]
     num_encoder_layers: int = 0
+    pipeline_type: str = "gpipe"
+    default_dp_type: str = "ddp"
+    vocab: EmbeddingLMHeadStrategy = field(
+        default_factory=EmbeddingLMHeadStrategy)
+    # a searched plan: its file and the search's predicted step time
+    plan_path: Optional[str] = None
+    predicted_time_cost_ms: Optional[float] = None
+
+    @property
+    def checkpoint_flags(self) -> List[bool]:
+        """Per layer: remat it."""
+        return [s.checkpoint for s in self.layers]
 
     @property
     def enc_flags(self) -> List[bool]:
@@ -42,9 +77,13 @@ class HybridParallelConfig:
         return self.checkpoint_flags[self.num_encoder_layers:]
 
     def describe(self) -> str:
-        return (f"pp{self.pp_deg} chunks{self.chunks} bsz{self.global_bsz} "
+        text = (f"pp{self.pp_deg} chunks{self.chunks} bsz{self.global_bsz} "
                 f"world{self.world_size} remat {sum(self.checkpoint_flags)}/"
                 f"{len(self.checkpoint_flags)} layers (single device)")
+        if self.plan_path:
+            text += (f" [{print_strategies(self.layers)}] searched plan "
+                     f"{self.plan_path}")
+        return text
 
 
 def resolve_chunks(chunks: int, pp_deg: int, global_bsz: int,
@@ -65,14 +104,20 @@ def get_chunks(args: CoreArgs, world_size: int) -> int:
                           args.parallel.global_train_batch_size, world_size)
 
 
-def check_single_device(args: CoreArgs, world_size: int) -> None:
-    """Raise, naming the setting, for any plan wider than one device."""
+def uses_json_plan(args: CoreArgs) -> bool:
     par = args.parallel
-    if par.config_mode == "json" or par.galvatron_config_path not in (
-            None, "", "None"):
-        raise NotImplementedError(f"a searched JSON plan {LATER}")
+    return par.config_mode == "json" or par.galvatron_config_path not in (
+        None, "", "None")
+
+
+def check_single_device(args: CoreArgs, world_size: int) -> None:
+    """Raise, naming the setting, for a GLOBAL-mode plan wider than one
+    device (JSON plans: :func:`check_plan_width`)."""
+    par = args.parallel
     if world_size > 1:
         raise NotImplementedError(f"world size {world_size} > 1 {LATER}")
+    if uses_json_plan(args):
+        return  # JSON mode ignores the GLOBAL degrees, as JAX's does
     wide = {"pp_deg": par.pp_deg, "global_tp_deg": par.global_tp_deg,
             "global_cp_deg": par.global_cp_deg,
             "global_ep_deg": par.global_ep_deg,
@@ -84,6 +129,76 @@ def check_single_device(args: CoreArgs, world_size: int) -> None:
         raise NotImplementedError(f"ulysses / sdp (ZeRO-3) {LATER}")
 
 
+def check_plan_width(path: str, layers: List[LayerStrategy], vocab,
+                     extras) -> None:
+    """Raise for the first field of a searched plan that needs more than
+    one device, naming it (and the layer)."""
+    def refuse(what: str):
+        raise NotImplementedError(f"plan {path}: {what} {ITEM10}")
+
+    if layers[0].pp_deg > 1:
+        refuse(f"pp_deg={layers[0].pp_deg}")
+    for i, s in enumerate(layers):
+        for key, value in (("tp_sizes_enc", s.tp_size),
+                           ("cp_sizes_enc", s.cp_size),
+                           ("use_sp", int(s.sp)),
+                           ("ep_sizes_enc", s.ep_size),
+                           ("tp_of_ep_sizes_enc", s.etp_size)):
+            if value > (0 if key == "use_sp" else 1):
+                refuse(f"{key}: layer {i} has {value}")
+    for key, value in (("vtp", vocab.vtp), ("vsp", int(vocab.vsp)),
+                       ("vcp", vocab.vcp)):
+        if value > (0 if key == "vsp" else 1):
+            refuse(f"{key}={value}")
+    if extras["vpp_deg"] > 1:
+        raise NotImplementedError(
+            f"plan {path}: vpp_deg={extras['vpp_deg']} (virtual pipeline "
+            "stages) needs the pipeline engines, which are not ported yet "
+            "(ROADMAP item 12)")
+    if extras["hier_dp"]:
+        raise NotImplementedError(
+            f"plan {path}: hier_dp=1 (the hierarchical dp reduction) is not "
+            "ported yet (ROADMAP items 12 and 14)")
+
+
+def _json_plan(args: CoreArgs, world_size: int, n_enc: int,
+               n_layers: int) -> HybridParallelConfig:
+    par = args.parallel
+    path = par.galvatron_config_path
+    if path in (None, "", "None"):
+        raise PlanFormatError("parallel.config_mode=json needs "
+                              "parallel.galvatron_config_path")
+    cfg = load_strategy_config(path)
+    # the plan's widths first, then the plan at this world size
+    check_plan_width(path, *config2strategy(cfg))
+    layers, vocab, extras = config2strategy(cfg, world_size=world_size)
+    if len(layers) != n_layers:
+        raise ValueError(
+            f"plan has {len(layers)} layers, model has {n_layers} "
+            f"(encoder {n_enc} + decoder {args.model.num_hidden_layers})")
+    if extras["num_encoder_layers"] not in (None, n_enc):
+        raise ValueError(
+            f"plan was searched for {extras['num_encoder_layers']} encoder "
+            f"layers, model has {n_enc}")
+    global_bsz = extras["global_bsz"] or par.global_train_batch_size
+    chunks = resolve_chunks(extras["chunks"], 1, global_bsz, world_size)
+    pp_division = extras["pp_division"] or default_pp_division(n_layers, 1)
+    for reason in eligibility.plan_structure_reasons(
+            layers=layers, vocab=vocab, pp_deg=1, vpp_deg=1,
+            pp_division=pp_division, n_layers=n_layers,
+            world_size=world_size, global_bsz=global_bsz):
+        raise ValueError(reason)
+    predicted = cfg.get("predicted_time_cost_ms")
+    return HybridParallelConfig(
+        pp_deg=1, chunks=chunks, global_bsz=global_bsz,
+        world_size=world_size, layers=list(layers),
+        num_encoder_layers=n_enc, pipeline_type=extras["pipeline_type"],
+        default_dp_type=extras["default_dp_type"], vocab=vocab,
+        plan_path=path,
+        predicted_time_cost_ms=None if predicted is None else float(
+            predicted))
+
+
 def get_hybrid_parallel_config(args: CoreArgs,
                                world_size: int) -> HybridParallelConfig:
     check_single_device(args, world_size)
@@ -93,14 +208,17 @@ def get_hybrid_parallel_config(args: CoreArgs,
         n_enc = (args.model.num_encoder_layers
                  if args.model.num_encoder_layers is not None
                  else args.model.num_hidden_layers)
-    chunks = get_chunks(args, world_size)
-    if par.global_train_batch_size % chunks:
+    n_layers = n_enc + args.model.num_hidden_layers
+    if uses_json_plan(args):
+        hpc = _json_plan(args, world_size, n_enc, n_layers)
+    else:
+        hpc = HybridParallelConfig(
+            pp_deg=1, chunks=get_chunks(args, world_size),
+            global_bsz=par.global_train_batch_size, world_size=world_size,
+            layers=[LayerStrategy(checkpoint=bool(par.global_checkpoint))]
+            * n_layers, num_encoder_layers=n_enc)
+    if hpc.global_bsz % hpc.chunks:
         raise ValueError(
-            f"global batch {par.global_train_batch_size} is not divisible by "
-            f"chunks={chunks}")
-    return HybridParallelConfig(pp_deg=1, chunks=chunks,
-                                global_bsz=par.global_train_batch_size,
-                                world_size=world_size,
-                                checkpoint_flags=[bool(par.global_checkpoint)]
-                                * (n_enc + args.model.num_hidden_layers),
-                                num_encoder_layers=n_enc)
+            f"global batch {hpc.global_bsz} is not divisible by "
+            f"chunks={hpc.chunks}")
+    return hpc

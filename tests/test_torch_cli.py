@@ -20,6 +20,9 @@ from hetu_galvatron_tpu_torch.runtime import initialize as TI
 
 GPT2 = os.path.join(os.path.dirname(__file__), "..", "hetu_galvatron_tpu",
                     "models", "configs", "gpt2-small.yaml")
+ACCEPTANCE_PLAN = os.path.join(
+    os.path.dirname(__file__), "..", "hetu_galvatron_tpu", "profiles",
+    "example_plans", "galvatron_config_acceptance_tp2dp2pp2.json")
 TINY = ["device=cpu", "model.hidden_size=64", "model.num_hidden_layers=2",
         "model.num_attention_heads=4", "model.vocab_size=128",
         "model.seq_length=16", "model.max_position_embeddings=32",
@@ -84,10 +87,13 @@ def test_torch_train_dist_with_dropout_runs_on_cpu():
 ])
 def test_torch_train_dist_refuses_flags_outside_the_slice(flag):
     name = flag.split("=")[0]
+    # a searched plan wider than one device: refused, naming its width
+    extra = {"parallel.config_mode=json": [
+        f"parallel.galvatron_config_path={ACCEPTANCE_PLAN}"]}.get(flag, [])
     with pytest.raises(NotImplementedError) as err:
-        train_dist.main([GPT2, *TINY, flag])
+        train_dist.main([GPT2, *TINY, flag, *extra])
     # a trace window with the plan audit on (its default) names the audit
-    key = {"parallel.config_mode": "JSON plan", "parallel.sdp": "sdp",
+    key = {"parallel.config_mode": "pp_deg=2", "parallel.sdp": "sdp",
            "parallel.num_processes": "num_processes",
            "profile.trace_dir": "observability.audit"}.get(name, name)
     assert key in str(err.value)

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
 the packages its card's machine lacks (PyYAML, pydantic, optax, orbax,
-transformers). The lifecycle modules the cross-process supervisor runs
-import no torch either: the card belongs to its children."""
+transformers), and scipy only in the profile readers' fits. The lifecycle
+modules the cross-process supervisor runs import no torch either: the card
+belongs to its children; nor does the strategy search, which is host
+arithmetic."""
 
 import ast
 import os
@@ -37,6 +39,25 @@ LIFECYCLE = (
     "hetu_galvatron_tpu_torch.observability.telemetry",
     "hetu_galvatron_tpu_torch.observability.trace_analysis",
 )
+# the modules of the profile -> search -> train loop; the search side (all
+# but the model profiler and the profiler launcher) imports no torch
+SEARCH = (
+    "hetu_galvatron_tpu_torch.utils.strategy",
+    "hetu_galvatron_tpu_torch.utils.hf_config_adapter",
+    "hetu_galvatron_tpu_torch.analysis.eligibility",
+    "hetu_galvatron_tpu_torch.core.search_engine.strategies",
+    "hetu_galvatron_tpu_torch.core.search_engine.profiles",
+    "hetu_galvatron_tpu_torch.core.search_engine.dp",
+    "hetu_galvatron_tpu_torch.core.search_engine.engine",
+    "hetu_galvatron_tpu_torch.core.cost_model.cost",
+    "hetu_galvatron_tpu_torch.core.profiler.hardware_profiler",
+    "hetu_galvatron_tpu_torch.cli.search_dist",
+    "hetu_galvatron_tpu_torch.core.profiler.model_profiler",
+    "hetu_galvatron_tpu_torch.cli.profiler",
+)
+# scipy (curve_fit) is allowed in the profile readers alone
+SCIPY_ALLOWED = os.path.join("hetu_galvatron_tpu_torch", "core",
+                             "search_engine", "profiles.py")
 JAX_PKG = "hetu_galvatron_tpu"
 
 
@@ -77,8 +98,10 @@ def test_torch_port_sources_import_nothing_blocked():
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
-            bad += [(os.path.relpath(path, ROOT), n) for n in names
-                    if _is_blocked(n)]
+            rel = os.path.relpath(path, ROOT)
+            bad += [(rel, n) for n in names if _is_blocked(n) or (
+                (n == "scipy" or n.startswith("scipy."))
+                and rel != SCIPY_ALLOWED)]
     assert not bad, bad
 
 
@@ -87,13 +110,14 @@ def test_torch_every_port_module_imports_with_jax_blocked():
     here) with the blocked packages poisoned in sys.modules."""
     code = f"""
 import importlib, pkgutil, sys
-for name in {BLOCKED!r}:
+for name in {BLOCKED!r} + ("scipy",):
     sys.modules[name] = None
 import hetu_galvatron_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 assert set({LIFECYCLE!r}) <= set(mods), set({LIFECYCLE!r}) - set(mods)
+assert set({SEARCH!r}) <= set(mods), set({SEARCH!r}) - set(mods)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m == {JAX_PKG!r}
                 or m.startswith({JAX_PKG!r} + "."))
@@ -123,6 +147,29 @@ check_flags(load_config("hetu_galvatron_tpu/models/configs/gpt2-small.yaml",
                          "supervisor.mode=process",
                          "supervisor.metrics_port=0",
                          "observability.enabled=true"]))
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
+def test_torch_search_side_imports_no_torch():
+    """The strategy search is host arithmetic: its modules (and the
+    world-1 hardware profiler) import with torch poisoned, and the scipy
+    fits load only when a profile is fitted."""
+    code = f"""
+import importlib, sys
+for name in {BLOCKED!r} + ("torch",):
+    sys.modules[name] = None
+for m in {SEARCH[:-2]!r}:
+    importlib.import_module(m)
+assert "scipy" not in sys.modules
+from hetu_galvatron_tpu_torch.core.search_engine.profiles import fit_linear
+assert [round(float(v), 6) for v in fit_linear([1, 2, 3], [3, 5, 7])] == [
+    2.0, 1.0]
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
