@@ -121,8 +121,8 @@ each of which ends the run with a non-zero exit when it fails:
     stream: the host's step interval on a second clock);
     ``trace_analysis.attribute`` over the trace: 2 steps, K1-K5 by kernel
     name as often as the launch counters over the window, the device wall
-    a step within 10% of the window's CUDA events, categories beside
-    ``tools/torch_step_breakdown.py``'s;
+    a step within 10% of the window's CUDA events, its categories (by
+    ``op_category``, the table ``tools/torch_step_breakdown.py`` reads);
     (b)'s median untraced step within 2% of (a)'s or inside (a)'s
     spread; peak memory under 79 GiB.
 13. GPT-2 small at full size under ``cli.supervise`` with
@@ -177,7 +177,9 @@ each of which ends the run with a non-zero exit when it fails:
     serves: one swap or more, no request dropped, the requests sent
     after the swap equal a fresh engine's on the new weights bit for
     bit, ``serve/swap_stall_ms`` printed, ``cli/summarize.py --timeline
-    all`` finds every timeline complete.
+    all`` finds every timeline complete. The memory doctor's KV-pool
+    component for (a)'s serving args must equal the bytes of the pool
+    tensors the plain run's engine allocated, exactly.
     ``python3 chip_smoke.py --serve-only`` runs phases 1, 2 and 14.
 15. main path of slice 10, Galvatron's profile -> search -> train loop
     at world 1, on phase 6's cell (``qwen2.5-7b.yaml`` at full width cut
@@ -201,8 +203,17 @@ each of which ends the run with a non-zero exit when it fails:
     peak against the budget, reported; (f) a plan whose flags are all
     equal trains bit for bit as GLOBAL mode with the same batch, chunks
     and ``parallel.global_checkpoint`` (losses and every parameter's
-    SHA-256). ``python3 chip_smoke.py --plan-only`` runs phases 1, 2 and
-    15.
+    SHA-256); (g) the memory doctor's world-1 accounting of both plans
+    beside their measured peaks (reported; its cost-model cross-check
+    must be clean), and an all-off plan of the uncut 28 layers rejected
+    at 80 GB with ``hbm_budget_reason``'s text; (h) the search again
+    under ``search.hbm_budget_gb`` 1 GB below the 64 GB plan's doctor
+    peak, at 64 GB (the gate must prune that plan) and at the tight
+    budget; the first search's winner, else the second's, must differ
+    from the 64 GB plan and fit the budget, and trains under (e)'s gates;
+    (i) ``cli.check --plan`` and ``--plan --memory --hbm-gb 80`` on the
+    64 GB plan, each in a child process, exit 0. ``python3 chip_smoke.py
+    --plan-only`` runs phases 1, 2 and 15.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
@@ -2047,8 +2058,6 @@ def qwen_ramp_path(smi: str, prefix: str, tmp: str):
         load_trace,
     )
 
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from torch_step_breakdown import category as breakdown_category
 
     base = [f"model.num_hidden_layers={QWEN_LAYERS}",
             "model.use_fused_ce=true", "parallel.global_checkpoint=1",
@@ -2170,17 +2179,10 @@ def qwen_ramp_path(smi: str, prefix: str, tmp: str):
     if abs(wall_step / window_step - 1) > WALL_TOL:
         raise SmokeFailure(f"trace wall {wall_step:.2f} ms a step is not "
                            f"within {WALL_TOL:.0%} of {window_step:.2f}")
-    tool = {}
-    for e in tr.events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            cat = breakdown_category(str(e.get("name", "")))
-            tool[cat] = tool.get(cat, 0.0) + e["dur"] / 1e3 / att.steps
     ours = {k: v / att.steps for k, v in att.categories_ms.items()}
-    for label, cats in (("trace_analysis", ours),
-                        ("torch_step_breakdown", tool)):
-        log(f"  categories by {label}, ms a step: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in sorted(cats.items(),
-                                              key=lambda kv: -kv[1])))
+    log("  categories by trace_analysis.op_category, ms a step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(ours.items(),
+                                          key=lambda kv: -kv[1])))
     # observability's cost to the untraced batch-8 steps
     a = sorted(off["step_ms"][k] for k in UNTRACED_FULL)
     b = sorted(on["step_ms"][k] for k in UNTRACED_FULL)
@@ -2213,8 +2215,7 @@ def qwen_ramp_path(smi: str, prefix: str, tmp: str):
                    idle_frac=att.bubble_frac, kernels=found,
                    device_ops_per_step=ops_step,
                    events=len(tr.events), parse_s=parse_s,
-                   categories_ms_per_step=ours,
-                   breakdown_tool_ms_per_step=tool),
+                   categories_ms_per_step=ours),
         peak_mem_gib_off=off["peak_mem_gib"],
         peak_mem_gib_on=on["peak_mem_gib"], goodput=on["goodput"],
         flight_dumps=on["flight_dumps"], wall_s_off=off["wall_s"],
@@ -2701,7 +2702,9 @@ def serve_run(tag, cp, cfg, reqs, arrivals, smi, registry=None, **over):
         program_shapes={k: sorted(map(str, v)) for k, v in shapes.items()
                         if k in ("decode", "verify")},
         streams=[h.result(0) for h in handles],
-        cached=[h.cached_tokens for h in handles])
+        cached=[h.cached_tokens for h in handles],
+        kv_pool_bytes=sum(t.numel() * t.element_size()
+                          for layer in eng.kv.pools for t in layer.values()))
     log(f"  ({tag}) {smi}: TTFT p50 {out['ttft_p50_ms']:.2f} / p99 "
         f"{out['ttft_p99_ms']:.2f} ms, inter-token p50 "
         f"{out['itl_p50_ms']:.2f} / p99 {out['itl_p99_ms']:.2f} ms, "
@@ -3047,6 +3050,7 @@ def qwen_serving(smi, tmp):
 
     # (a) the three runs, and (b) a second plain run with request events
     runs = {"plain": serve_run("plain", cp, cfg, reqs, arrivals, smi)}
+    kv_pool = kv_pool_check(cfg, runs["plain"], smi)
     events_path = os.path.join(tmp, "serve_events.jsonl")
     reg = MetricsRegistry([JsonlSink(events_path)])
     runs["plain-repeat"] = serve_run("plain-repeat", cp, cfg, reqs,
@@ -3170,7 +3174,34 @@ def qwen_serving(smi, tmp):
     del cp
     torch.cuda.empty_cache()
     return dict(runs=runs, fp32_gates=fp32, bf16_reported=bf16,
-                parameters=n_params, requests=len(reqs), alone=alone)
+                parameters=n_params, requests=len(reqs), alone=alone,
+                kv_pool=kv_pool)
+
+
+def kv_pool_check(cfg, run, smi):
+    """The memory doctor's serving component (``kv_pool_mb`` for phase
+    14's ``ServingArgs`` on a one-device plan of the uncut model) against
+    the bytes of the pool tensors the engine allocated: equal, exactly
+    (both go through ``serving/kv_cache.py``'s sizing helpers)."""
+    from hetu_galvatron_tpu_torch.analysis.memory_doctor import (
+        diagnose_memory,
+    )
+    from hetu_galvatron_tpu_torch.core.args_schema import ServingArgs
+
+    rep = diagnose_memory(world1_plan(cfg.num_hidden_layers), cfg, 1,
+                          serving=ServingArgs(**SERVE_ARGS))
+    doctor_mb = rep.stages[0].components["kv_pool_mb"]
+    if not rep.ok or doctor_mb * 2 ** 20 != run["kv_pool_bytes"]:
+        raise SmokeFailure(f"memory doctor: KV pool {doctor_mb} MB "
+                           f"(ok={rep.ok}, {rep.errors}); the engine "
+                           f"allocated {run['kv_pool_bytes']} bytes")
+    log(f"  (a) memory doctor: KV pool {doctor_mb:.1f} MB = the engine's "
+        f"{run['kv_pool_bytes']:,} bytes of pool tensors, exactly; beside "
+        f"the plain run's max_memory_allocated "
+        f"{run['max_memory_allocated_gib']:.2f} GiB [{smi}]")
+    return dict(doctor_kv_pool_mb=doctor_mb,
+                engine_pool_bytes=run["kv_pool_bytes"],
+                max_memory_allocated_gib=run["max_memory_allocated_gib"])
 
 
 def _leaves(tree):
@@ -3382,6 +3413,9 @@ PLAN_CALLS = 2 + 20  # a profiled forward: 2 warm-up calls, 20 timed
 PLAN_STEPS = 6  # each trained plan: 2 warm-up steps, 4 timed
 PLAN_BUDGET_GB = 64.0
 PLAN_UNCUT_GB = 80.0  # the uncut model searched at the whole card
+# (h): the HBM gate's budget sits this far below the doctor's peak for the
+# 64 GB plan
+HBM_MARGIN_GB = 1.0
 # the search reads (b)'s profile in static mode, that is its batch-1 point
 # as ms per sample: JAX's profiler (and the port, for parity) writes each
 # batch size's whole-batch ms, which batch mode's fit takes for ms per
@@ -3444,29 +3478,42 @@ def tight_budget_gb(mem, k: int, hidden: int, micro: int):
     return max_mb / 1024, need
 
 
-def plan_search(tag, argv, budget_gb, tmp):
-    """``cli.search_dist`` at one budget; (exit code, plan path, plan)."""
+def plan_search(tag, argv, budget_gb, tmp, hbm_gb=None):
+    """``cli.search_dist`` at one budget, under the static HBM gate at
+    ``hbm_gb`` when given; (exit code, plan path, plan, the gate's log
+    lines)."""
+    import contextlib
+
     from hetu_galvatron_tpu_torch.cli import search_dist
 
     out_dir = os.path.join(tmp, f"plans_{tag}")
+    gate = [] if hbm_gb is None else [f"search.hbm_budget_gb={hbm_gb}"]
     t0 = time.perf_counter()
-    rc = search_dist.main(argv + [f"search.memory_constraint={budget_gb}",
-                                  f"search.output_config_path={out_dir}"])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = search_dist.main(argv + gate + [
+            f"search.memory_constraint={budget_gb}",
+            f"search.output_config_path={out_dir}"])
     secs = time.perf_counter() - t0
+    pruned = [line for line in printed.getvalue().splitlines()
+              if line.startswith("hbm gate: pruned")]
+    if pruned:
+        log(f"  search {tag}: the HBM gate pruned {len(pruned)} candidates; "
+            f"first: {pruned[0]}")
     found = sorted(glob.glob(os.path.join(out_dir, "galvatron_config_*")))
     if (rc == 0) != bool(found):
         raise SmokeFailure(f"search {tag}: exit {rc} with plans {found}")
     if not found:
         log(f"  search {tag} at {budget_gb} GB: no plan (exit {rc}, "
             f"{secs:.2f} s)")
-        return rc, None, None
+        return rc, None, None, pruned
     with open(found[0]) as f:
         plan = json.load(f)
     log(f"  search {tag} at {budget_gb} GB ({secs:.2f} s): bsz "
         f"{plan['global_bsz']}, chunks {plan['chunks']}, checkpoint "
         f"[{plan['checkpoint']}], predicted {plan['predicted_time_cost_ms']}"
         f" ms a step ({os.path.basename(found[0])})")
-    return rc, found[0], plan
+    return rc, found[0], plan, pruned
 
 
 def plan_train(tag, prefix, over, smi):
@@ -3540,6 +3587,69 @@ def plan_gates(tag, res, plan, budget_gb, cfg):
         f"peak / budget {res['peak_over_budget']:.4f} ({res['peak_gib']:.2f}"
         f" GiB / {budget_gb} GB){'; OVER ITS BUDGET' if over else ''}")
     return res
+
+
+def world1_plan(layers: int, global_bsz: int = 1):
+    """An all-off plan for one device: every layer at pp, tp, cp, dp 1
+    without remat, ``global_bsz`` in one microbatch."""
+    from hetu_galvatron_tpu_torch.utils.strategy import (
+        EmbeddingLMHeadStrategy,
+        LayerStrategy,
+        strategy_list2config,
+    )
+
+    return strategy_list2config([LayerStrategy()] * layers,
+                                global_bsz=global_bsz, chunks=1,
+                                vocab=EmbeddingLMHeadStrategy(),
+                                pp_division=[layers])
+
+
+def doctor_row(tag, path, cfg, measured_gib, smi):
+    """(g): the memory doctor's world-1 accounting of a searched plan
+    beside its measured ``max_memory_allocated``; the report must be clean
+    (its cost-model cross-check exact), the ratio is reported."""
+    from hetu_galvatron_tpu_torch.analysis.memory_doctor import (
+        diagnose_memory,
+    )
+
+    rep = diagnose_memory(path, cfg, 1)
+    if not rep.ok:
+        raise SmokeFailure(f"memory doctor on the {tag} plan: {rep.errors}")
+    comp = dict(rep.stages[0].components)
+    measured_mb = measured_gib * 1024
+    row = dict(components_mb=comp, doctor_peak_mb=rep.peak_mb,
+               measured_peak_mb=measured_mb,
+               measured_over_doctor=measured_mb / rep.peak_mb,
+               cross_check_ratios=rep.ratios)
+    log(f"  (g) {tag} plan: doctor "
+        + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in comp.items())
+        + f" MB; peak {rep.peak_mb:.1f} MB against measured "
+        f"{measured_mb:.1f} MB ({measured_gib:.2f} GiB): measured / doctor "
+        f"{row['measured_over_doctor']:.4f} [{smi}]")
+    return row
+
+
+def check_cli(tag, path, argv):
+    """(i): ``python -m hetu_galvatron_tpu_torch.cli.check`` on a searched
+    plan in a child process; it must exit 0."""
+    cmd = [sys.executable, "-m", "hetu_galvatron_tpu_torch.cli.check",
+           "--plan", path, "--model", QWEN_YAML,
+           f"model.num_hidden_layers={QWEN_LAYERS}", *PLAN_EXTRA, "--world",
+           "1", *argv]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    secs = time.perf_counter() - t0
+    verdicts = [line for line in res.stdout.splitlines()
+                if line.startswith(("plan doctor:", "memory doctor:",
+                                    "per-device peak"))]
+    log(f"  (i) cli.check {' '.join(argv) or '--plan'} on the {tag} plan: "
+        f"exit {res.returncode} in {secs:.1f} s; {verdicts}")
+    if res.returncode != 0:
+        raise SmokeFailure(f"cli.check {argv} on the {tag} plan exited "
+                           f"{res.returncode}:\n{res.stdout[-2000:]}"
+                           f"\n{res.stderr[-2000:]}")
+    return dict(exit_code=res.returncode, seconds=secs, verdicts=verdicts)
 
 
 def plan_paths(smi: str):
@@ -3703,7 +3813,8 @@ def plan_paths(smi: str):
                   f"search.sp_time_path={hw}/sp_time_{tag}.json",
                   *PLAN_EXTRA]
         plans = {}
-        rc, path, plan = plan_search("budget", search, PLAN_BUDGET_GB, tmp)
+        rc, path, plan, _ = plan_search("budget", search, PLAN_BUDGET_GB,
+                                        tmp)
         if plan is None:
             raise SmokeFailure(f"no plan at {PLAN_BUDGET_GB} GB")
         plans["budget"] = (path, plan, PLAN_BUDGET_GB)
@@ -3712,7 +3823,7 @@ def plan_paths(smi: str):
         micro = plan["global_bsz"] // plan["chunks"]
         k = QWEN_LAYERS // 2
         gb, need = tight_budget_gb(mem, k, cfg.hidden_size, micro)
-        rc, path, plan = plan_search("tight", search, gb, tmp)
+        rc, path, plan, _ = plan_search("tight", search, gb, tmp)
         log(f"  the tight budget {gb} GB: the search's memory model needs "
             f"{need} MB for microbatches of {micro} with {k} of "
             f"{QWEN_LAYERS} layers checkpointed")
@@ -3720,7 +3831,7 @@ def plan_paths(smi: str):
             raise SmokeFailure(f"at {gb} GB the plan does not checkpoint "
                                f"some layers and not others: {plan}")
         plans["tight"] = (path, plan, gb)
-        rc, path, plan = plan_search(
+        rc, path, plan, _ = plan_search(
             "uncut", [a.replace(f"model.num_hidden_layers={QWEN_LAYERS}",
                                 "model.num_hidden_layers=28")
                       for a in search], PLAN_UNCUT_GB, tmp)
@@ -3767,11 +3878,23 @@ def plan_paths(smi: str):
                                "plan's")
         log(f"  the {name} plan (checkpoint {flag} everywhere) and GLOBAL "
             "mode: losses and every parameter's SHA-256 equal")
+        out["same_as_global"] = dict(plan=name, losses=ref["losses"],
+                                     global_step_ms=ref["step_ms"])
+
+        doctor = doctor_static_checks(plans, runs, cfg, smi)
+        gated = hbm_gate_path(search, plans, runs, doctor, prefix, cfg,
+                              tmp, smi)
+        runs["gated"] = gated.pop("run")
+        doctor["cli"] = {
+            "plan": check_cli("budget", plans["budget"][0], []),
+            "memory": check_cli("budget", plans["budget"][0],
+                                ["--memory", "--hbm-gb",
+                                 f"{PLAN_UNCUT_GB:g}"])}
+        out["doctor"] = doctor
+        out["hbm_gate"] = gated
         for r in runs.values():
             r.pop("digests")
         out["train"] = runs
-        out["same_as_global"] = dict(plan=name, losses=ref["losses"],
-                                     global_step_ms=ref["step_ms"])
         per_step = {k: v // PLAN_STEPS
                     for k, v in runs["budget"]["launches"].items()}
         total = {k: comp_launches[k] + mem_launches[k] + ref["launches"][k]
@@ -3782,6 +3905,111 @@ def plan_paths(smi: str):
         out["eval_launches"] = dict.fromkeys(total, 0)
     out["wall_s"] = time.perf_counter() - t_all
     log(f"  phase 15 in {out['wall_s']:.1f} s [{smi}]")
+    return out
+
+def doctor_static_checks(plans, runs, cfg, smi):
+    """(g): the doctor beside both searched plans' measured peaks, and the
+    uncut 28 layers rejected by ``hbm_budget_reason`` at 80 GB."""
+    from hetu_galvatron_tpu_torch.analysis.memory_doctor import (
+        diagnose_memory,
+        hbm_budget_reason,
+    )
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+
+    log("  (g) the memory doctor (world 1, the compiled-engine convention) "
+        "beside each trained plan's measured peak; reported, not gated")
+    rows = {name: doctor_row(name, path, cfg, runs[name]["peak_gib"], smi)
+            for name, (path, _, _) in plans.items()}
+    uncut = load_config(QWEN_YAML, ["model.num_hidden_layers=28",
+                                    *PLAN_EXTRA]).model
+    rep = diagnose_memory(world1_plan(uncut.num_hidden_layers), uncut, 1,
+                          hbm_gb=PLAN_UNCUT_GB)
+    want = hbm_budget_reason(rep.peak_mb, PLAN_UNCUT_GB)
+    if rep.ok or want is None or rep.errors[-1:] != [want]:
+        raise SmokeFailure(f"the uncut model at {PLAN_UNCUT_GB} GB: doctor "
+                           f"ok={rep.ok}, errors {rep.errors}")
+    comp = rep.stages[0].components
+    log(f"  (g) uncut {uncut.num_hidden_layers} layers, an all-off world-1 "
+        f"plan at bsz 1: model states {comp['model_states_mb']:.1f} MB of "
+        f"peak {rep.peak_mb:.1f} MB; rejected: {want}")
+    return dict(plans=rows, uncut=dict(
+        layers=uncut.num_hidden_layers, hbm_gb=PLAN_UNCUT_GB,
+        components_mb=dict(comp), peak_mb=rep.peak_mb, reason=want))
+
+
+def hbm_gate_path(search, plans, runs, doctor, prefix, cfg, tmp, smi):
+    """(h): the search's static HBM gate at a budget 1 GB below the
+    doctor's peak for the 64 GB plan. First at 64 GB: the gate must prune
+    that plan (its log line); the gate runs after the DP on each task's
+    time-optimal winner, as JAX's does, so it may leave no plan. Then at
+    the tight budget of (d), where the DP's own memory model checkpoints
+    layers: its winner must pass the gate. The gated winner (the first
+    search's, else the second's) must differ from the 64 GB plan, its
+    doctor peak must be within the budget, and it trains under (e)'s
+    gates."""
+    from hetu_galvatron_tpu_torch.analysis.memory_doctor import (
+        diagnose_memory,
+    )
+
+    _, base, _ = plans["budget"]
+    hbm_gb = round(doctor["plans"]["budget"]["doctor_peak_mb"] / 1024
+                   - HBM_MARGIN_GB, 6)
+    log(f"  (h) search.hbm_budget_gb={hbm_gb} (the 64 GB plan's doctor peak "
+        f"less {HBM_MARGIN_GB:g} GB)")
+    out = dict(hbm_budget_gb=hbm_gb, searches={})
+    mark = f"(bsz {base['global_bsz']} chunks {base['chunks']} pp 1)"
+    winner = None
+    for tag, gb in (("gated-64", PLAN_BUDGET_GB),
+                    ("gated-tight", plans["tight"][2])):
+        rc, path, plan, pruned = plan_search(tag, search, gb, tmp,
+                                             hbm_gb=hbm_gb)
+        rec = dict(memory_constraint_gb=gb, exit_code=rc,
+                   pruned_candidates=len(pruned),
+                   pruned_the_64gb_plan=any(mark in x for x in pruned),
+                   first_pruned=pruned[0] if pruned else None)
+        if plan is not None:
+            peak = diagnose_memory(path, cfg, 1).peak_mb
+            rec.update(global_bsz=plan["global_bsz"], chunks=plan["chunks"],
+                       checkpoint=plan["checkpoint"], doctor_peak_mb=peak,
+                       predicted_time_cost_ms=plan["predicted_time_cost_ms"])
+            if peak > hbm_gb * 1024:
+                raise SmokeFailure(f"{tag}: the gated winner's doctor peak "
+                                   f"{peak:.1f} MB busts {hbm_gb} GB")
+            if winner is None:
+                winner = (tag, path, plan, gb)
+        out["searches"][tag] = rec
+    if not out["searches"]["gated-64"]["pruned_the_64gb_plan"]:
+        raise SmokeFailure(f"the gate at {hbm_gb} GB did not prune the "
+                           f"{PLAN_BUDGET_GB} GB plan {mark}")
+    if winner is None:
+        raise SmokeFailure(f"no plan passed the HBM gate at {hbm_gb} GB")
+    tag, path, plan, gb = winner
+    if (plan["global_bsz"], plan["chunks"], plan["checkpoint"]) == (
+            base["global_bsz"], base["chunks"], base["checkpoint"]):
+        raise SmokeFailure(f"the gated winner ({tag}) is the 64 GB plan")
+    log(f"  (h) the gated winner ({tag}): bsz {plan['global_bsz']}, chunks "
+        f"{plan['chunks']}, checkpoint [{plan['checkpoint']}]; training it")
+    res = plan_train("gated", prefix, ["parallel.config_mode=json",
+                                       f"parallel.galvatron_config_path="
+                                       f"{path}"], smi)
+    res = plan_gates("gated", res, plan, gb, cfg)
+    res["peak_over_hbm_budget"] = res["peak_gib"] / hbm_gb
+    key = ("global_bsz", "chunks", "checkpoint")
+    same = [n for n, (_, p, _) in plans.items()
+            if all(p[k] == plan[k] for k in key)]
+    if same:
+        # the same plan trained again: the same losses, bit for bit
+        if res["losses"] != runs[same[0]]["losses"]:
+            raise SmokeFailure(f"the gated plan equals the {same[0]} plan "
+                               f"but its losses {res['losses']} differ from "
+                               f"{runs[same[0]]['losses']}")
+        log(f"  (h) the gated plan is the {same[0]} plan of (d): losses "
+            "bit-identical to its run in (e)")
+    res["same_as"] = same[0] if same else None
+    log(f"  (h) gated plan: measured peak / hbm_budget_gb "
+        f"{res['peak_over_hbm_budget']:.4f} ({res['peak_gib']:.2f} GiB / "
+        f"{hbm_gb} GB) [{smi}]")
+    out.update(winner=tag, run=res)
     return out
 
 

@@ -1,19 +1,35 @@
-"""Plan-eligibility predicates of the cost model, the search and the plan.
+"""Every plan-eligibility predicate, in one pure module.
 
-Port of the part of ``hetu_galvatron_tpu/analysis/eligibility.py`` that the
-cost model, the search engine and the JSON-plan path call: the search-side
-adapters ``search_compiled_expressible`` (:93),
-``search_tp_overlap_expressible`` (:196) and ``search_hier_dp_expressible``
-(:302), with the compiled-schedule predicate the first evaluates, and the
-plan-structure reasons (:363-437). The runtime predicates of multi-rank
-plans (overlap, hierarchical dp and dp-schedule reasons over a lowered
-plan) come with the SPMD plans on NCCL (ROADMAP item 10). Everything here
-is pure Python over plain values, and the reason strings are JAX's.
+Port of ``hetu_galvatron_tpu/analysis/eligibility.py``, all of it: the
+compiled-schedule predicate :32 with its runtime adapter
+``compiled_unsupported_reason`` :73 and the search's
+``search_compiled_expressible`` :93; the overlapped-TP reasons
+``overlap_unsupported_reason`` :126, ``layer_overlap_reason`` :161 and
+``plan_overlap_reasons`` :175 (over the port's ``models/moe.is_moe_layer``)
+with ``search_tp_overlap_expressible`` :196; the hierarchical dp reasons
+``hier_dp_unsupported_reason`` :222, ``plan_hier_dp_reason`` :280,
+``search_hier_dp_expressible`` :302 and ``dp_schedule_unsupported_reason``
+:326; and the plan-structure reasons :363-437. The cost model, the search
+engine, the plan doctor (``analysis/plan_doctor.py``) and the memory
+doctor call them, so the search can never price what the doctor reports
+as refused, or the reverse.
+
+Everything here is pure Python over plain values (no torch, no devices),
+so a plan is diagnosed on a machine with no card. The reason strings are
+JAX's, character for character: the launcher logs them, the plan doctor
+prints them, and the parity tests compare them. They name the JAX
+runtime's mechanisms (shard_map, GSPMD, the per-lane vmap) because they
+are JAX's contract; the port's runtime refuses these plans by its own
+names (``runtime/hybrid_config.py::check_plan_width``).
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Optional, Sequence
+
+# ---------------------------------------------------------------------------
+# compiled single-program 1F1B schedule expressibility
+# ---------------------------------------------------------------------------
 
 
 def compiled_schedule_unsupported_reason(
@@ -28,7 +44,15 @@ def compiled_schedule_unsupported_reason(
     packed_docs: bool = False,
 ) -> Optional[str]:
     """None when the compiled 1F1B schedule can express a plan with these
-    properties; otherwise the reason."""
+    properties; otherwise the human-readable reason every caller logs.
+
+    This is the CANONICAL predicate: the runtime engine
+    (``CompiledPipelineEngine.unsupported_reason``), the launcher's
+    fallback log, and the cost model's dispatch-waiver gate
+    (:func:`search_compiled_expressible`) all evaluate it — the search must
+    never price the compiled schedule into a plan the runtime will then
+    reject at startup (or vice versa).
+    """
     if pp_deg < 2:
         return "pp_deg < 2 routes through the SPMD path"
     if pipeline_type != "pipedream_flush":
@@ -49,14 +73,37 @@ def compiled_schedule_unsupported_reason(
     return None
 
 
+def compiled_unsupported_reason(cfg: Any, hpc: Any,
+                                data: Any = None) -> Optional[str]:
+    """Runtime adapter: (ModelArgs, HybridParallelConfig, DataArgs) ->
+    reason. cp / zigzag-cp plans are expressible since the engine
+    de-vmapped its stage axis (the ring kernel runs inside the fused
+    program as a stage-stacked full-manual shard_map)."""
+    return compiled_schedule_unsupported_reason(
+        pp_deg=hpc.pp_deg,
+        pipeline_type=hpc.pipeline_type,
+        vpp_deg=getattr(hpc, "vpp_deg", 1),
+        model_type=cfg.model_type,
+        num_experts=cfg.num_experts,
+        pp_division=hpc.pp_division,
+        uniform_strategies=all(s == hpc.layers[0] for s in hpc.layers),
+        packed_docs=data is not None and (
+            getattr(data, "reset_position_ids", False)
+            or getattr(data, "reset_attention_mask", False)),
+    )
+
+
 def search_compiled_expressible(
     schedule_impl: str,
     pipeline_type: str,
     partition: Sequence[int],
     strategy_list: Sequence[Any],
 ) -> bool:
-    """Can the pipeline dispatch-overhead waiver apply to this candidate
-    (``cost_model.cost.pipeline_time_cost``)?"""
+    """Cost-model adapter: can the dispatch-overhead waiver apply to this
+    candidate (``cost_model.cost.pipeline_time_cost``)? The search works in
+    degrees (SearchStrategy), not model configs, so the model-level gates
+    (t5 / MoE / packed docs) are resolved by the caller's layertype setup;
+    here the structural gates must agree with the runtime exactly."""
     if schedule_impl != "compiled":
         return False
     return compiled_schedule_unsupported_reason(
@@ -67,20 +114,248 @@ def search_compiled_expressible(
     ) is None
 
 
+# ---------------------------------------------------------------------------
+# overlapped-TP (ring ag/rs matmul) per-layer eligibility
+# ---------------------------------------------------------------------------
+
+# shared fallback-reason strings: the launcher's plan-level logging, the
+# actual dispatch (parallel/spmd.py tp_overlap_overrides) and the plan
+# doctor must all report the SAME reasons
+T5_REASON = "t5 encoder-decoder layers keep the GSPMD projection path"
+MOE_REASON = ("MoE layer: expert matmuls route through the ep/etp "
+              "dispatcher, not the dense projections")
+
+
+def overlap_unsupported_reason(
+    cfg: Any,
+    *,
+    ulysses: bool,
+    has_cp: bool,
+    tp: int,
+    seq_len: Optional[int] = None,
+) -> Optional[str]:
+    """Why one layer cannot run the decomposed ring-overlap matmuls
+    (None = eligible). ``cfg`` supplies the concrete widths (seq_length,
+    head_dim, heads, ffn_dim, hidden_act); the parallel degrees come in as
+    plain values so both the mesh-lowered runtime and the degree-only
+    search/doctor views evaluate the same predicate."""
+    if ulysses:
+        return ("ulysses layer: the tp axes carry sequence (all-to-all "
+                "attention), not weight shards")
+    if tp <= 1:
+        return "tp == 1 (no tensor-parallel collectives to overlap)"
+    if has_cp:
+        return ("cp layer: the boundary activation is sequence-sharded "
+                "over cp, not tp (ring attention owns the sequence axis)")
+    seq = seq_len if seq_len is not None else cfg.seq_length
+    if seq % tp:
+        return (f"tp {tp} does not divide the sequence length {seq} into "
+                "ring chunks")
+    hd, nq, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.kv_heads
+    if ((nq + 2 * nkv) * hd) % tp or (nq * hd) % tp:
+        return f"tp {tp} does not divide the qkv/out projection widths"
+    f = cfg.ffn_dim
+    gated = cfg.hidden_act in ("swiglu", "geglu")
+    if f % tp or (gated and (2 * f) % tp):
+        return f"tp {tp} does not divide the MLP width {f}"
+    return None
+
+
+def layer_overlap_reason(cfg: Any, sharding: Any, tp: int,
+                         seq_len: Optional[int] = None) -> Optional[str]:
+    """Mesh-lowered adapter (the historical ``ops/overlap.py`` entry
+    point): reads ulysses/cp off a ``LayerSharding``-shaped object (JAX
+    ``runtime/mesh.py``)."""
+    return overlap_unsupported_reason(
+        cfg,
+        ulysses=bool(getattr(sharding, "ulysses", False)),
+        has_cp=bool(getattr(sharding, "cp_axes", ())),
+        tp=tp,
+        seq_len=seq_len,
+    )
+
+
+def plan_overlap_reasons(cfg: Any, hpc: Any) -> List:
+    """Per-layer eligibility from the PLAN alone (``hpc.layers``
+    LayerStrategy rows; no mesh needed) — what
+    ``parallel.spmd.tp_overlap_overrides`` will dispatch. Returns
+    [(layer index, reason-or-None)]; reason None = the layer runs
+    overlapped."""
+    from hetu_galvatron_tpu_torch.models.moe import is_moe_layer
+
+    out = []
+    for i, s in enumerate(hpc.layers):
+        if cfg.model_type == "t5":
+            out.append((i, T5_REASON))
+            continue
+        if is_moe_layer(cfg, i):
+            out.append((i, MOE_REASON))
+            continue
+        out.append((i, overlap_unsupported_reason(
+            cfg, ulysses=s.sp, has_cp=s.cp_size > 1, tp=s.tp_size)))
+    return out
+
+
 def search_tp_overlap_expressible(tp: int, cp: int, enabled: bool) -> bool:
-    """Can this candidate layer earn the ring-overlap discount? Megatron TP
-    only (Ulysses has tp == 1 here) and no cp."""
+    """Cost-model adapter (``cost_model.cost.tp_overlap_expressible``):
+    can this candidate layer earn the ring-overlap discount? Megatron TP
+    only (Ulysses has tp == 1 here) and no cp — the degree-level half of
+    :func:`overlap_unsupported_reason` (the search works in degrees, not
+    concrete widths, so the divisibility checks are resolved at plan-doctor
+    / runtime time)."""
     return enabled and tp > 1 and cp == 1
 
 
+# ---------------------------------------------------------------------------
+# hierarchical dp/sdp gradient reduction eligibility (ops/hier_reduce.py)
+# ---------------------------------------------------------------------------
+
+# shared reason strings (launcher logging + plan doctor + engine ctors)
+HIER_KERNEL_REASON = ("shard_map kernels (tp_overlap rings / flash / "
+                      "ring-cp / ulysses a2a) cannot nest under the "
+                      "hierarchical path's per-lane vmap")
+HIER_DROPOUT_REASON = ("dropout: per-lane rng streams would draw masks "
+                       "the flat path never draws (trajectories diverge "
+                       "beyond reduction reassociation)")
+HIER_ZIGZAG_REASON = ("zigzag-cp: sequences arrive pre-permuted for the "
+                      "ring kernel's layout, and the lane path's GSPMD "
+                      "attention would causally mask them by array order")
+
+
+def hier_dp_unsupported_reason(
+    *,
+    dp: int,
+    cp: int = 1,
+    ulysses: bool = False,
+    tp: int = 1,
+    tp_consecutive: bool = True,
+    uniform_strategies: bool = True,
+    model_type: str = "gpt",
+    num_experts: int = 0,
+    dropout: float = 0.0,
+    vtp: int = 1,
+    vcp: int = 1,
+    cp_zigzag: bool = False,
+) -> Optional[str]:
+    """None when the hierarchical dp gradient-reduction path can run this
+    plan; otherwise the reason the launcher logs before keeping the flat
+    GSPMD all-reduce. The same predicate gates the runtime engines, the
+    cost model's hierarchical dp term
+    (:func:`search_hier_dp_expressible`), and the count/byte predictions
+    (``telemetry.plan_collective_counts/bytes``).
+
+    cp/Ulysses-bearing sdp groups ARE eligible at the plan level: the lane
+    vmap covers the dp axes (``spmd_axis_name`` takes the full dp-axis
+    tuple) and the per-lane grads stay partial over the cp/sequence axes,
+    which the in-lane partitioner reduces over the small ICI-local group —
+    the big once-per-microbatch dp ring is still what moves out of the
+    scan. The REMAINING cp/sp gate is a kernel-dispatch property: the
+    pp>1 engines keep their stage-stacked ring/a2a kernels (cannot nest
+    under the lane vmap — they raise :data:`HIER_KERNEL_REASON`), while
+    the pp=1 SPMD path swaps those layers to the GSPMD attention core.
+    Zigzag-cp stays ineligible here (:data:`HIER_ZIGZAG_REASON`): its
+    dataloader-permuted layout is only correct under the ring kernel."""
+    if not uniform_strategies:
+        return ("heterogeneous per-layer strategies (one dp lane split "
+                "must cover every layer)")
+    if dp < 2:
+        return "dp == 1 (no data-parallel gradient ring to decompose)"
+    if cp_zigzag:
+        return HIER_ZIGZAG_REASON
+    if not tp_consecutive:
+        return ("non-consecutive tp: the dp axes are not a contiguous "
+                "leading mesh run, so they cannot regroup into "
+                "slice x host sub-axes")
+    if model_type == "t5":
+        return "t5 encoder-decoder stacks keep the flat GSPMD reduction"
+    if num_experts:
+        return ("MoE layers: expert grads ride the ep/edp axes, not the "
+                "plain dp lane split")
+    if dropout > 0.0:
+        return HIER_DROPOUT_REASON
+    if vtp * vcp > tp * cp:
+        return (f"vocab tp/cp degree {vtp * vcp} exceeds the layer "
+                f"tp*cp {tp * cp}: the vocab weight axes would overlap "
+                "the dp lane axes")
+    return None
+
+
+def plan_hier_dp_reason(cfg: Any, hpc: Any) -> Optional[str]:
+    """Plan-level adapter: (ModelArgs, HybridParallelConfig) -> reason
+    (None = the hierarchical path can run). Kernel nesting (tp_overlap /
+    flash / ring) is a runtime dispatch property checked by the engines —
+    this is the pure plan-shape half."""
+    s = hpc.layers[0]
+    return hier_dp_unsupported_reason(
+        dp=s.dp_size,
+        cp=s.cp_size,
+        ulysses=s.sp,
+        tp=s.tp_size,
+        tp_consecutive=s.tp_consecutive,
+        uniform_strategies=all(l == s for l in hpc.layers),
+        model_type=cfg.model_type,
+        num_experts=cfg.num_experts,
+        dropout=max(cfg.hidden_dropout, cfg.attention_dropout),
+        vtp=hpc.vocab.vtp,
+        vcp=hpc.vocab.vcp,
+        cp_zigzag=bool(getattr(hpc, "cp_zigzag", False)),
+    )
+
+
 def search_hier_dp_expressible(s: Any, enabled: bool) -> bool:
-    """Can this candidate layer earn the hierarchical dp pricing? dp > 1;
-    cp/Ulysses layers only without a pipeline."""
+    """Cost-model adapter (``cost_model.cost``): can this candidate layer
+    earn the hierarchical dp pricing? The degree-level half of
+    :func:`hier_dp_unsupported_reason` — dp > 1; cp/Ulysses layers
+    qualify on the pp=1 SPMD path only (the pp engines keep their
+    stage-stacked ring/a2a kernels, which cannot nest under the lane vmap
+    — :data:`HIER_KERNEL_REASON` — so the search must not price what the
+    runtime will reject: search==runtime parity). The model-level gates
+    (t5/MoE/dropout/zigzag/vocab overlap) are resolved by the runtime and
+    the plan doctor."""
     if not (bool(enabled) and s.dp > 1):
         return False
     if s.cp == 1 and s.sp == 1:
         return True
     return s.pp == 1
+
+
+DP_SCHEDULE_FAMILIES = ("ring", "tree_hd", "tree_bcast", "torus2d",
+                        "hier_rings")
+# the hand-built reference backends (collectives/reference.py) ride the
+# same reducer seam for the bit-parity drills; they are not searched
+DP_SCHEDULE_HANDBUILT = ("ring_handbuilt", "tree_handbuilt")
+
+
+def dp_schedule_unsupported_reason(name: str, lanes: int, cross: int = 1,
+                                   bucket_mb: float = 0.0
+                                   ) -> Optional[str]:
+    """Can an emitted collective schedule ``name``
+    (``collectives/synthesize.py``) replace the hand-implemented
+    hierarchical rs/ar/ag program for a ``lanes``-wide dp group split
+    over ``cross`` slices? Pure shape arithmetic — the synthesis itself
+    re-validates via the static verifier before emission."""
+    if name not in DP_SCHEDULE_FAMILIES + DP_SCHEDULE_HANDBUILT:
+        return (f"unknown dp schedule family {name!r} (expected one of "
+                f"{DP_SCHEDULE_FAMILIES + DP_SCHEDULE_HANDBUILT})")
+    if lanes < 2:
+        return f"dp schedule needs dp > 1, got dp degree {lanes}"
+    if bucket_mb > 0:
+        return ("emitted dp schedules are monolithic; hier_bucket_mb > 0 "
+                "only composes with the hand-implemented wavefront "
+                "schedule")
+    pow2 = lanes >= 2 and (lanes & (lanes - 1)) == 0
+    if name in ("tree_hd", "tree_bcast", "ring_handbuilt",
+                "tree_handbuilt") and not pow2:
+        return (f"{name} needs a power-of-two dp group, got {lanes}")
+    if name == "torus2d" and not (
+            (cross >= 2 and lanes // cross >= 2)
+            or (lanes >= 4 and lanes % 2 == 0)):
+        return (f"torus2d needs a 2D-factorable dp group, got {lanes} "
+                f"(cross {cross})")
+    if name == "hier_rings" and not (cross >= 2 and lanes // cross >= 2):
+        return (f"hier_rings needs cross >= 2 and intra >= 2, got dp "
+                f"{lanes} over cross {cross}")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +425,8 @@ def plan_structure_reasons(
     global_bsz: int,
 ) -> List[str]:
     """Every structural problem with a resolved plan, in the order
-    ``runtime/hybrid_config.py`` raises them (it raises on the first)."""
+    ``runtime/hybrid_config.py`` raises them (it raises on the FIRST;
+    the plan doctor reports them all)."""
     out: List[str] = []
     for r in (
         pp_world_reason(world_size, pp_deg),

@@ -396,9 +396,9 @@ class ServingArgs:
 @dataclass
 class SearchArgs:
     """JAX ``core/args_schema.py:620``: the strategy search's knobs
-    (``core/search_engine/``). ``hier_dp`` / ``hier_bucket_mb``,
-    ``hbm_budget_gb > 0`` and ``use_calibrated`` with a calibration
-    directory are read here and raise by name where they are used."""
+    (``core/search_engine/``). ``use_calibrated`` with a calibration
+    directory is read here and raises by name where it is used (the
+    calibration loop, ROADMAP item 10)."""
 
     num_nodes: int = 1
     num_devices_per_node: int = 8

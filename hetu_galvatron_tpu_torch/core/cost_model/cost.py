@@ -7,12 +7,14 @@ the decoder-layer, embedding/LM-head and pipeline time and memory costs,
 profiles give the same floats, bit for bit (the golden searches of
 ``tests/search_engine/test_search_golden.py`` pin them).
 
-The hierarchical dp gradient-reduction pricing (``search.hier_dp=1``:
-``hier_dp_reduce_ms`` and ``dp_schedule_rankings``, which price the
-emitted collective schedules) raises ``NotImplementedError`` where it
-would apply: it comes with the emitted collective schedules (ROADMAP item
-14). With ``hier_dp`` off, as in every profile this package writes, no
-cost reaches it.
+With ``search.hier_dp=1`` the hierarchical dp gradient reduction is priced
+as JAX prices it: ``_hier_dp_split`` :242, ``hier_dp_buckets`` :269,
+``hier_dp_reduce_ms`` :282 (monolithic and bucketed), the synthesized
+dp-schedule families of ``collectives/`` ranked by
+``dp_schedule_rankings`` :346 and ``dp_schedule_choice`` :380, the bucket
+sweep ``hier_dp_best_bucket`` :549 and ``hier_dp_wins`` :568. The
+overlapped-TP diagnostic ``tp_overlap_hidden_frac`` (:584) comes with the
+TP overlap (ROADMAP item 11).
 
 Units: memory in MB, profiled times in ms, returned times in seconds.
 """
@@ -246,36 +248,158 @@ def _tp_message_ms(s: "SearchStrategy", ctx: CostContext,
     return _lookup_latency(ctx.allgather_latency[s.tp], message_mb)
 
 
+def _hier_dp_split(s: "SearchStrategy", ctx: CostContext
+                   ) -> Optional[Tuple[int, int]]:
+    """(cross, intra) split of the layer's DP group — the group the
+    runtime's lane reduction actually covers (``mesh.hier_cross_degree``
+    splits dp, not sdp; the leftover cp/sp partial sums stay in-lane) —
+    mirroring the pp-first slice absorption; None when the leftover
+    slices cannot divide dp (the runtime would reject too)."""
+    import math as _math
+
+    dcn = max(ctx.dcn_slices, 1)
+    left = dcn // _math.gcd(dcn, max(s.pp, 1))
+    if s.dp % left:
+        return None
+    return left, s.dp // left
+
+
 def hier_grad_payload_mb(s: "SearchStrategy", ctx: CostContext) -> float:
     """Per-device megabytes of the hierarchical reduction's grad payload:
     the whole model's layer params on this tp shard, in the training
-    dtype."""
+    dtype. THE one formula — `layer_time_cost`'s pricing, the audit's
+    dp decomposition, and the search engine's plan-bucket recording all
+    call it, so the bucket size written into the plan JSON can never
+    desynchronize from the payload the price assumed."""
     return (ctx.parameter_size / s.tp * ctx.layer_num
             * (0.5 if ctx.mixed_precision else 1.0))
 
 
-HIER_DP_ITEM = ("search.hier_dp=1: the hierarchical dp gradient-reduction "
-                "pricing is not ported yet (ROADMAP item 14, the emitted "
-                "collective schedules)")
+def hier_dp_buckets(grad_mb: float, bucket_mb: float) -> int:
+    """Bucket count of the pipelined hierarchical schedule for a
+    ``grad_mb`` payload at ``bucket_mb`` granularity (1 = monolithic) —
+    the cost model's degree-level mirror of the runtime's exact
+    ``ops.hier_reduce.hier_bucket_layout`` (which works in padded
+    elements; the search prices in MB)."""
+    if bucket_mb <= 0 or grad_mb <= 0:
+        return 1
+    import math as _math
+
+    return max(int(_math.ceil(grad_mb / bucket_mb)), 1)
 
 
 def hier_dp_reduce_ms(s: "SearchStrategy", ctx: CostContext,
                       grad_mb: float) -> Optional[float]:
-    """None where the hierarchical dp term does not apply (``hier_dp``
-    off, or a layer it cannot price), which leaves the flat pricing exact;
-    raises where JAX would price the hierarchical schedule."""
+    """Hierarchical dp gradient-reduction time for ``grad_mb`` (the
+    per-device grad volume): rs-intra at full volume + ar-cross on the
+    1/intra shard + ag-intra back, each priced off the per-level algorithm
+    curves (rs/ag at half the allreduce curve, the repo-wide convention).
+    None when ineligible or any needed curve is missing — the caller then
+    keeps the flat pricing, so legacy profiles stay byte-identical.
+
+    ``ctx.hier_bucket_mb > 0`` prices the bucketed SOFTWARE-PIPELINED
+    schedule (ops/hier_reduce.py wavefront emission): with B buckets of
+    ``grad_mb / B`` each, the first bucket pays its full three-stage
+    chain and every further bucket pays only the bottleneck stage —
+    ``T = t_ici + t_dcn + (B-1) * max(t_ici, t_dcn)`` where ``t_ici`` is
+    the per-bucket rs+ag (one ICI allreduce-curve hit) and ``t_dcn`` the
+    per-bucket cross-slice allreduce on the 1/intra shard. Each stage
+    re-pays its α per bucket, so the model prices the real trade: more
+    buckets hide more of the slow link but spend more latency. B = 1
+    reproduces the monolithic sum exactly.
+
+    cp/Ulysses-bearing layers (sdp > dp) add the IN-LANE residual: the
+    per-lane grads stay partial over the cp/sp group, which the
+    partitioner reduces over the ICI-local ``sdp/dp``-sized group —
+    priced as one allreduce-curve hit at full grad volume (the same
+    once-per-step granularity the flat model uses)."""
     if not search_hier_dp_expressible(s, ctx.hier_dp):
         return None
-    raise NotImplementedError(HIER_DP_ITEM)
+    if ctx.hier_bucket_mb < 0:
+        # auto mode (search.hier_bucket_mb < 0): the price IS the best
+        # bucket size's price — the search picks the granularity, and
+        # hier_dp_best_bucket reports which one for the plan record
+        return hier_dp_best_bucket(s, ctx, grad_mb)[0]
+    split = _hier_dp_split(s, ctx)
+    if split is None:
+        return None
+    cross, intra = split
+    B = hier_dp_buckets(grad_mb, ctx.hier_bucket_mb)
+    msg = grad_mb / B
+    t_ici = 0.0
+    if intra > 1:
+        rs = _algo_min_ms(ctx, intra, 1, "ici", msg)
+        if rs is None:
+            return None
+        t_ici = rs  # 0.5 rs + 0.5 ag of the same curve
+    t_dcn = 0.0
+    if cross > 1:
+        ar = _algo_min_ms(ctx, cross, 0, "dcn", msg / intra)
+        if ar is None:
+            ar = _algo_min_ms(ctx, cross, 1, "dcn", msg / intra)
+        if ar is None:
+            return None
+        t_dcn = ar
+    if intra == 1 and cross == 1:
+        return None
+    total = t_ici + t_dcn + (B - 1) * max(t_ici, t_dcn)
+    csp = s.sdp // max(s.dp, 1)
+    if csp > 1:
+        resid = _algo_min_ms(ctx, csp, 1, "ici", grad_mb)
+        if resid is None:
+            return None
+        total += resid
+    return total
 
 
 def dp_schedule_rankings(s: "SearchStrategy", ctx: CostContext,
                          grad_mb: float) -> Dict[str, float]:
-    """The α-β prices of the synthesizable dp-schedule families: empty
-    where JAX's are (not expressible, or dp < 2), else not ported."""
-    if not search_hier_dp_expressible(s, ctx.hier_dp) or s.dp < 2:
+    """α-β prices (ms) of every synthesizable dp-schedule family for this
+    layer's dp group at ``grad_mb`` payload — the collective compiler's
+    search hook. The families come from
+    ``collectives.synthesize.synthesize_space`` (ring, halving-doubling,
+    latency-optimal tree broadcast, 2D torus, hierarchical rings — what
+    the shape admits), priced by ``collectives.pricing`` over per-LINK
+    curves inverted out of the profiled per-algorithm ring fits
+    (``ctx.alpha_beta_algos``); min-over-curves, so a family a missing
+    curve cannot price is simply absent. Empty when the plan is not
+    hierarchically expressible or the profile carries no algorithm
+    curves — the caller then records no schedule and the legacy pricing
+    is untouched (the golden-search pins rely on that)."""
+    if not search_hier_dp_expressible(s, ctx.hier_dp):
         return {}
-    raise NotImplementedError(HIER_DP_ITEM)
+    split = _hier_dp_split(s, ctx)
+    if split is None or s.dp < 2:
+        return {}
+    cross, intra = split
+    from hetu_galvatron_tpu_torch.collectives.pricing import (
+        link_curves_from_algos,
+        price_space,
+    )
+    from hetu_galvatron_tpu_torch.collectives.synthesize import (
+        synthesize_space,
+    )
+
+    curves = link_curves_from_algos(
+        ctx.alpha_beta_algos, intra if cross > 1 else s.dp, cross)
+    if not curves:
+        return {}
+    return price_space(synthesize_space(s.dp, cross=cross), grad_mb,
+                       curves)
+
+
+def dp_schedule_choice(s: "SearchStrategy", ctx: CostContext,
+                       grad_mb: float
+                       ) -> Optional[Tuple[str, Dict[str, float]]]:
+    """(winning family name, full rankings) for the plan record, or None
+    when nothing priced. The winner is informational — it names the
+    emitted program the runtime should execute (plan JSON
+    ``dp_schedule``) — and deliberately does NOT perturb the plan's
+    predicted time, so legacy profiles price byte-identically."""
+    ranks = dp_schedule_rankings(s, ctx, grad_mb)
+    if not ranks:
+        return None
+    return min(ranks, key=ranks.get), ranks
 
 
 def _tp_terms(s: "SearchStrategy", ctx: CostContext, gbsz: int, chunks: int
@@ -379,9 +503,11 @@ def layer_time_cost(
     # comm against the backward keep only the forward window free.
     overlap_tp = tp_overlap_expressible(s, ctx) and tp_time > 0
 
-    # the hierarchical dp alternative: None keeps the flat pricing (and it
-    # raises where it would apply)
-    hier_dp_reduce_ms(s, ctx, hier_grad_payload_mb(s, ctx))
+    # hierarchical dp alternative (hier_dp_reduce_ms): the full per-device
+    # grad volume reduced ONCE at step end (un-overlapped — the runtime's
+    # lane accumulation defers the reduction out of the backward), priced
+    # per level off the algorithm curves; None keeps flat-only pricing
+    hier_ms = hier_dp_reduce_ms(s, ctx, hier_grad_payload_mb(s, ctx))
 
     def tp_term(window: float) -> float:
         """Exposed TP comm time beyond the compute window it hides under."""
@@ -401,6 +527,19 @@ def layer_time_cost(
         else:
             ov, rest = overlap(dp_message * factor)
             r = fct + ov + rest + tp_term(fct) + ctx.extra_overhead
+        if factor and hier_ms is not None:
+            # hierarchical dp candidate: backward runs un-overlapped (the
+            # reduction happens once after accumulation), dp comm is the
+            # three-level schedule; the layer takes whichever is cheaper
+            if s.tp_sp == 1 and s.dp > 1:
+                r_h = fct + bct + hier_ms + ctx.extra_overhead
+            elif s.dp > 1 and s.tp_sp > 1:
+                r_h = (fct + bct + tp_term(fct) + hier_ms
+                       + ctx.extra_overhead)
+            else:
+                r_h = None
+            if r_h is not None:
+                r = min(r, r_h)
         if s.dp_type == DPType.ZERO3:
             r += fsdp_allgather * dc
         if s.pp > 1 and p2p_coe is not None:
@@ -409,6 +548,48 @@ def layer_time_cost(
         return r * 0.001 * ctx.costmodel_coe / n
 
     return result(False), result(True)
+
+
+# candidate bucket sizes for auto mode (hier_bucket_mb < 0): monolithic
+# plus power-of-two granularities covering the sub-MB-α to tens-of-MB-β
+# regimes the fitted curves span
+_BUCKET_SWEEP_MB: Tuple[float, ...] = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0,
+                                       32.0, 64.0)
+
+
+def hier_dp_best_bucket(s: "SearchStrategy", ctx: CostContext,
+                        grad_mb: float
+                        ) -> Tuple[Optional[float], float]:
+    """(best hierarchical ms, chosen bucket_mb) over the candidate bucket
+    sweep — the "search picks the bucket size" entry: the engine records
+    the winning granularity in the plan JSON (``"hier_bucket_mb"``) so the
+    runtime pipelines at exactly the size the price assumed. (None, 0.0)
+    when the hierarchical term is unavailable at every size."""
+    from dataclasses import replace as _replace
+
+    best: Tuple[Optional[float], float] = (None, 0.0)
+    for cand in _BUCKET_SWEEP_MB:
+        ms = hier_dp_reduce_ms(
+            s, _replace(ctx, hier_bucket_mb=cand), grad_mb)
+        if ms is not None and (best[0] is None or ms < best[0]):
+            best = (ms, cand)
+    return best
+
+
+def hier_dp_wins(s: "SearchStrategy", ctx: CostContext, gbsz: int,
+                 chunks: int) -> bool:
+    """Did the hierarchical dp term price this layer's chosen cost (i.e.
+    enabling ``ctx.hier_dp`` strictly lowered the with-sync layer cost)?
+    The search engine records ``"hier_dp": 1`` in the winning plan when
+    every layer says yes, so the runtime enables the matching execution
+    path."""
+    if not search_hier_dp_expressible(s, ctx.hier_dp):
+        return False
+    from dataclasses import replace as _replace
+
+    off = _replace(ctx, hier_dp=False)
+    return (layer_time_cost(s, ctx, gbsz, chunks)[0]
+            < layer_time_cost(s, off, gbsz, chunks)[0])
 
 
 def layer_time_components(s: "SearchStrategy", ctx: CostContext,
@@ -436,9 +617,10 @@ def layer_time_components(s: "SearchStrategy", ctx: CostContext,
     # charging dp_message here would invent a component the search never
     # priced, and total_ms must reconcile with layer_time_cost
     dp_time = dp_message * ctx.comm_coe_dict[dc_key] if s.dp > 1 else 0.0
-    if s.dp > 1:
-        # the hierarchical decomposition would replace dp_time here
-        hier_dp_reduce_ms(s, ctx, hier_grad_payload_mb(s, ctx))
+    if s.dp > 1 and hier_dp_wins(s, ctx, gbsz, chunks):
+        # the chosen price was the hierarchical schedule: the audit must
+        # compare measured dp time against THAT decomposition
+        dp_time = hier_dp_reduce_ms(s, ctx, hier_grad_payload_mb(s, ctx))
     if s.dp_type == DPType.ZERO3 and s.sdp > 1:
         dp_time += dp_message * 0.5 * ctx.comm_coe_dict[dc_key]
 

@@ -1,10 +1,11 @@
-"""Layer-wise hybrid-parallel strategy search engine.
+"""Galvatron-style hybrid-parallel strategy search engine.
 
 Port of ``hetu_galvatron_tpu/core/search_engine/engine.py``:
 ``SearchEngine`` with ``initialize``, ``optimize`` (the thread pool of
 ``search.parallel_search`` too), ``solve_task``, ``_solve_coarse``,
-``pp_division_balanced``, ``check_cost_model``, ``save_results``,
-``_runner_ups`` and ``_write_search_trace`` (over the port's
+``pp_division_balanced``, ``check_cost_model``, the static HBM gate
+``_hbm_gate`` (:367), ``save_results`` with its hierarchical dp record
+(:761-826), ``_runner_ups`` and ``_write_search_trace`` (over the port's
 ``observability/sinks.JsonlSink``). It enumerates candidate per-layer
 strategies, prices them with the cost model against the profiled model
 and hardware files, solves a per-stage knapsack DP over (layer, memory,
@@ -15,8 +16,13 @@ The outer loop sweeps (global bsz, chunks, pp degree, tp-vs-ulysses mode,
 max tp degree); each task runs the DP per stage per vocab strategy and
 scores the plan with the pipeline cost model. Every operation is JAX's, in
 JAX's order, so the same profiles give the same throughput and the same
-plan JSON, bit for bit. The static HBM gate (``search.hbm_budget_gb > 0``)
-raises by name: it needs the memory doctor (ROADMAP item 16).
+plan JSON, bit for bit. With ``search.hbm_budget_gb > 0`` each task's
+winner passes the memory doctor's predicate
+(``analysis/memory_doctor.py::search_result_hbm_reason``, the one
+``cli/check.py --memory --hbm-gb`` applies); with ``search.hier_dp=1`` the
+plan records ``hier_dp``, ``hier_bucket_mb``, ``dp_schedule`` and
+``dp_schedule_rankings`` as JAX's does. The port's runtime still refuses
+``hier_dp=1`` plans (ROADMAP items 12 and 14b).
 """
 
 from __future__ import annotations
@@ -369,17 +375,47 @@ class SearchEngine:
         sink.close()
 
     def _hbm_gate(self, r: TaskResult) -> TaskResult:
-        """The static HBM gate (``args.hbm_budget_gb`` > 0, model config
-        known) acts where JAX's would prune a feasible candidate whose
-        memory-doctor peak busts the budget: not ported, so it raises."""
+        """Static HBM gate (``args.hbm_budget_gb`` > 0, model config
+        known): prune a feasible candidate whose memory-doctor peak
+        busts the budget — the SAME predicate ``cli/check.py --memory
+        --hbm-gb`` applies to the written plan
+        (``analysis/memory_doctor.py::search_result_hbm_reason``).
+        Always accounted under the COMPILED-engine convention (the
+        checker's default, and the strict upper bound: it adds the
+        stage-input buffer and the vocab replication premium the host
+        engine doesn't pay), so a plan the search emits can never be one
+        ``check --memory --hbm-gb`` rejects — regardless of which
+        schedule impl the search was pricing time for.
+
+        Known altitude limitation: the gate runs POST-DP, on each
+        (bsz, chunks, pp) task's time-optimal winner — a pruned task may
+        still have a slower within-budget runner-up the DP never
+        surfaced (the DP's own memory constraint is the PROFILED
+        ``memory_constraint``, not this analytic one). Folding the
+        analytic predicate into candidate filtering is future work; the
+        gate's contract today is a backstop, not an optimizer."""
         a = self.args
         if (a.hbm_budget_gb <= 0 or self.model_cfg is None
                 or r.strategy_list is None):
             return r
-        raise NotImplementedError(
-            f"search.hbm_budget_gb={a.hbm_budget_gb}: the static HBM gate "
-            "needs the memory doctor, which is not ported yet (ROADMAP "
-            "item 16)")
+        from hetu_galvatron_tpu_torch.analysis.memory_doctor import (
+            search_result_hbm_reason,
+        )
+
+        reason = search_result_hbm_reason(
+            r.strategy_list, r.pp_stage_list, self.model_cfg,
+            global_bsz=r.bsz, chunks=r.chunks,
+            pipeline_type=self.pipeline_type,
+            schedule_impl="compiled",
+            hbm_gb=a.hbm_budget_gb,
+            vocab_tp_sp=r.vocab_tp_sp, vocab_sp=bool(r.vocab_sp),
+            vocab_sdp=bool(r.vocab_sdp),
+            mixed_precision=self.mixed_precision != "fp32")
+        if reason is None:
+            return r
+        print(f"hbm gate: pruned candidate (bsz {r.bsz} chunks {r.chunks} "
+              f"pp {r.pp_size}): {reason}")
+        return TaskResult(bsz=r.bsz, chunks=r.chunks)
 
     # ---------------- per-task DP ----------------
 
@@ -732,6 +768,56 @@ class SearchEngine:
                     best.strategy_list[li], ctx, best.bsz, best.chunks)
                 pred_ms.append(round(comp["fct_ms"] + comp["bct_ms"], 6))
                 li += 1
+        # record the hierarchical dp choice when the hierarchical term
+        # priced EVERY layer's dp reduction (cost.hier_dp_wins) — the
+        # runtime then enables the matching ops/hier_reduce.py path
+        hier_chosen = False
+        hier_bucket = 0.0
+        dp_sched_name = None
+        dp_sched_ranks = None
+        if self.args.hier_dp:
+            from hetu_galvatron_tpu_torch.core.cost_model.cost import (
+                dp_schedule_choice,
+                hier_dp_best_bucket,
+                hier_dp_wins,
+                hier_grad_payload_mb,
+            )
+
+            li = 0
+            flags = []
+            for lt, n in enumerate(self.layernum_list):
+                for _ in range(n):
+                    flags.append(hier_dp_wins(
+                        best.strategy_list[li], self.contexts[lt],
+                        best.bsz, best.chunks))
+                    li += 1
+            hier_chosen = bool(flags) and all(flags)
+            if hier_chosen:
+                # record the bucket granularity the price assumed: the
+                # configured size, or — auto mode (hier_bucket_mb < 0) —
+                # the sweep's argmin over the first layertype's whole
+                # grad payload, so the runtime pipelines at exactly the
+                # granularity the search paid for
+                ctx0 = self.contexts[0]
+                s0 = best.strategy_list[0]
+                if ctx0.hier_bucket_mb < 0:
+                    _, hier_bucket = hier_dp_best_bucket(
+                        s0, ctx0, hier_grad_payload_mb(s0, ctx0))
+                else:
+                    hier_bucket = max(ctx0.hier_bucket_mb, 0.0)
+                # collective-compiler record: price the synthesized
+                # schedule space for the winning plan's dp group and name
+                # the cheapest family (cost.dp_schedule_choice). The
+                # emitted programs are monolithic, so a bucketed plan
+                # keeps the hand-implemented pipelined path instead.
+                if hier_bucket == 0.0:
+                    choice = dp_schedule_choice(
+                        s0, ctx0, hier_grad_payload_mb(s0, ctx0))
+                    if choice is not None:
+                        dp_sched_name, ranks = choice
+                        dp_sched_ranks = {
+                            k: round(v, 6) for k, v in sorted(
+                                ranks.items(), key=lambda kv: kv[1])}
         cfg = strategy_list2config(
             runtime, global_bsz=best.bsz, chunks=best.chunks,
             pipeline_type=self.pipeline_type,
@@ -741,7 +827,13 @@ class SearchEngine:
                 embed_sdp=bool(best.vocab_sdp)),
             pp_division=best.pp_stage_list,
             num_encoder_layers=getattr(self, "num_encoder_layers", None),
-            predicted_layer_compute_ms=pred_ms)
+            predicted_layer_compute_ms=pred_ms,
+            hier_dp=hier_chosen, hier_bucket_mb=hier_bucket,
+            dp_schedule=dp_sched_name)
+        if dp_sched_ranks:
+            # the full priced space rides along (cheapest first) so plan
+            # readers can see HOW the family won, not just that it did
+            cfg["dp_schedule_rankings"] = dp_sched_ranks
         if best.time_cost != float("inf"):
             cfg["predicted_time_cost_ms"] = round(best.time_cost * 1e3, 6)
         if runner_ups:
@@ -764,7 +856,9 @@ class SearchEngine:
         # through config2strategy + per-layer LayerStrategy.validate at the
         # searcher's world size BEFORE it lands on disk — a serialization
         # bug surfaces here, not at load time on the machines that train
-        from hetu_galvatron_tpu_torch.utils.strategy import save_strategy_config
+        from hetu_galvatron_tpu_torch.utils.strategy import (
+            save_strategy_config,
+        )
 
         save_strategy_config(path, cfg, world_size=self.world_size)
         return path

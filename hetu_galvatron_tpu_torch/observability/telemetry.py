@@ -30,6 +30,8 @@ with JAX's gauge names:
   ``max_memory_allocated`` at flush time (host-side allocator counters,
   no device sync; absent while CUDA is not initialized).
 
+``layer_param_mb`` (JAX :243) is a decoder layer's fp32 parameter
+megabytes, which the memory doctor (``analysis/memory_doctor.py``) reads.
 ``emit_plan_telemetry`` emits the one-shot ``plan`` event of a
 single-device plan, which predicts no communication. The predicted
 collective counts and bytes of wider plans (``plan_comm_volume``,
@@ -287,6 +289,19 @@ def _device_kind() -> str:
     except Exception:  # noqa: BLE001 — no usable CUDA runtime
         pass
     return ""
+
+
+def layer_param_mb(model) -> float:
+    """Per-decoder-layer parameter megabytes at fp32 (the unit
+    ``CostContext.parameter_size`` uses)."""
+    h = model.hidden_size
+    nd = model.num_attention_heads * model.head_dim
+    kd = model.kv_heads * model.head_dim
+    attn = h * nd + 2 * h * kd + nd * h
+    gated = model.hidden_act in ("swiglu", "geglu")
+    ffn = (3 if gated else 2) * h * model.ffn_dim
+    norms = 2 * h
+    return (attn + ffn + norms) * 4 / MB
 
 
 def emit_plan_telemetry(registry: MetricsRegistry, hpc, model,

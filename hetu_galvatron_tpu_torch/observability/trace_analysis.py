@@ -122,8 +122,8 @@ _COLLECTIVE_STEMS: Tuple[Tuple[str, str], ...] = (
     ("broadcast", "broadcast"),
 )
 COLLECTIVES = frozenset(c for _, c in _COLLECTIVE_STEMS)
-# tools/torch_step_breakdown.py's table, first match wins on the
-# lower-cased kernel name
+# the compute categories, first match wins on the lower-cased kernel name
+# (tools/torch_step_breakdown.py reads this table too)
 _COMPUTE: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
@@ -139,9 +139,9 @@ _COMPUTE: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 
 
 def op_category(name: str) -> str:
-    """A device op's category: an NCCL collective by kind, else the
-    compute category of ``tools/torch_step_breakdown.py``, else
-    ``other``."""
+    """A device op's category: an NCCL collective by kind, else its
+    compute category (the one table ``tools/torch_step_breakdown.py``
+    also reads), else ``other``."""
     low = name.lower()
     if "nccl" in low:
         for stem, cat in _COLLECTIVE_STEMS:

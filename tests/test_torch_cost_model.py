@@ -259,27 +259,46 @@ def test_torch_reprice_stored_plan_ms_matches_jax(engines):
 
 
 def test_torch_hier_dp_pricing_raises_by_name(engines):
-    teng, _ = engines
+    """``search.hier_dp=1`` is priced now (it raised by name until the
+    collective schedules were ported): the layer cost, the reduce ms and
+    the dp-schedule rankings equal JAX's on the engines' contexts, with
+    and without per-algorithm curves; a layer the hierarchical term does
+    not price keeps its flat cost."""
+    teng, jeng = engines
     layer, _ = _strategies()
-    ctx = teng.contexts[0]
-    ctx.hier_dp = True
+    algos = {f"{n}_{c}": {"ring_ici": (0.02 * n, 85.0),
+                          "tree_ici": (0.01, 40.0 + n),
+                          "ring_dcn": (0.3, 12.0)}
+             for n in (2, 4, 8) for c in (0, 1)}
+    ctxs = (teng.contexts[0], jeng.contexts[0])
+    saved = [(c.hier_dp, c.alpha_beta_algos, c.dcn_slices) for c in ctxs]
     try:
-        wide = [st for st, _ in layer if st.dp > 1][0]
-        with pytest.raises(NotImplementedError, match="search.hier_dp=1.*"
-                           "ROADMAP item 14"):
-            TC.layer_time_cost(wide, ctx, 64, 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            TC.dp_schedule_rankings(wide, ctx, 100.0)
-        # a layer the hierarchical term does not price keeps its flat cost
+        for curves, slices in (({}, 1), (algos, 1), (algos, 2)):
+            for c in ctxs:
+                c.hier_dp, c.alpha_beta_algos, c.dcn_slices = (
+                    True, curves, slices)
+            for (st, jst) in layer:
+                grad = TC.hier_grad_payload_mb(st, ctxs[0])
+                assert grad == JC.hier_grad_payload_mb(jst, ctxs[1])
+                _same(lambda: TC.layer_time_cost(st, ctxs[0], 64, 8),
+                      lambda: JC.layer_time_cost(jst, ctxs[1], 64, 8), st)
+                _same(lambda: TC.hier_dp_reduce_ms(st, ctxs[0], grad),
+                      lambda: JC.hier_dp_reduce_ms(jst, ctxs[1], grad), st)
+                _same(lambda: list(TC.dp_schedule_rankings(
+                    st, ctxs[0], grad).items()),
+                    lambda: list(JC.dp_schedule_rankings(
+                        jst, ctxs[1], grad).items()), st)
         one = [st for st, _ in layer if st.dp == 1][0]
-        assert TC.hier_dp_reduce_ms(one, ctx, 100.0) is None
-        assert TC.dp_schedule_rankings(one, ctx, 100.0) == {}
-        ctx.hier_dp = False
-        flat = TC.layer_time_cost(one, ctx, 64, 8)
-        ctx.hier_dp = True
-        assert TC.layer_time_cost(one, ctx, 64, 8) == flat
+        assert TC.hier_dp_reduce_ms(one, ctxs[0], 100.0) is None
+        assert TC.dp_schedule_rankings(one, ctxs[0], 100.0) == {}
+        hier = TC.layer_time_cost(one, ctxs[0], 64, 8)
+        ctxs[0].hier_dp = False
+        assert TC.layer_time_cost(one, ctxs[0], 64, 8) == hier
+        wide = [st for st, _ in layer if st.dp > 1][0]
+        assert TC.hier_dp_reduce_ms(wide, ctxs[0], 100.0) is None
     finally:
-        ctx.hier_dp = False
+        for c, (h, a, d) in zip(ctxs, saved):
+            c.hier_dp, c.alpha_beta_algos, c.dcn_slices = h, a, d
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)

@@ -2,8 +2,8 @@
 the packages its card's machine lacks (PyYAML, pydantic, optax, orbax,
 transformers), and scipy only in the profile readers' fits. The lifecycle
 modules the cross-process supervisor runs import no torch either: the card
-belongs to its children; nor does the strategy search, which is host
-arithmetic."""
+belongs to its children; nor do the strategy search, the static checks and
+the collective schedules, which are host arithmetic."""
 
 import ast
 import os
@@ -54,6 +54,20 @@ SEARCH = (
     "hetu_galvatron_tpu_torch.cli.search_dist",
     "hetu_galvatron_tpu_torch.core.profiler.model_profiler",
     "hetu_galvatron_tpu_torch.cli.profiler",
+)
+# the static checks and the collective-schedule pricing: host arithmetic
+# that imports no torch either (the plan doctor reads models/moe.py, which
+# does, only when it diagnoses a plan)
+STATIC = (
+    "hetu_galvatron_tpu_torch.collectives",
+    "hetu_galvatron_tpu_torch.collectives.ir",
+    "hetu_galvatron_tpu_torch.collectives.synthesize",
+    "hetu_galvatron_tpu_torch.collectives.verify",
+    "hetu_galvatron_tpu_torch.collectives.pricing",
+    "hetu_galvatron_tpu_torch.analysis.memory_doctor",
+    "hetu_galvatron_tpu_torch.analysis.plan_doctor",
+    "hetu_galvatron_tpu_torch.analysis.lint",
+    "hetu_galvatron_tpu_torch.cli.check",
 )
 # scipy (curve_fit) is allowed in the profile readers alone
 SCIPY_ALLOWED = os.path.join("hetu_galvatron_tpu_torch", "core",
@@ -118,6 +132,7 @@ for m in mods:
     importlib.import_module(m)
 assert set({LIFECYCLE!r}) <= set(mods), set({LIFECYCLE!r}) - set(mods)
 assert set({SEARCH!r}) <= set(mods), set({SEARCH!r}) - set(mods)
+assert set({STATIC!r}) <= set(mods), set({STATIC!r}) - set(mods)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m == {JAX_PKG!r}
                 or m.startswith({JAX_PKG!r} + "."))
@@ -158,13 +173,14 @@ print("ok")
 
 def test_torch_search_side_imports_no_torch():
     """The strategy search is host arithmetic: its modules (and the
-    world-1 hardware profiler) import with torch poisoned, and the scipy
-    fits load only when a profile is fitted."""
+    world-1 hardware profiler), the static checks and the collective
+    schedules import with torch poisoned, and the scipy fits load only
+    when a profile is fitted."""
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r} + ("torch",):
     sys.modules[name] = None
-for m in {SEARCH[:-2]!r}:
+for m in {SEARCH[:-2] + STATIC!r}:
     importlib.import_module(m)
 assert "scipy" not in sys.modules
 from hetu_galvatron_tpu_torch.core.search_engine.profiles import fit_linear

@@ -5,8 +5,10 @@ plan JSON equal byte for byte, runner-ups included), the thread pool,
 world-1 searches on the repo's fixtures and on the hardware files a world-1
 profile writes, the NumPy DP against the C++ core, the search-trace JSONL
 (its timestamps aside), ``dp_solve`` on random tables, the failure of a
-search for more devices than its profile measured, and the refusals of
-``search.hier_dp=1`` and ``search.hbm_budget_gb > 0``. The JAX engine
+search for more devices than its profile measured, and searches with
+``search.hier_dp=1`` and ``search.hbm_budget_gb > 0`` (equal to JAX's;
+``tests/test_torch_hier_cost.py`` and ``test_torch_memory_doctor.py``
+hold them on curves and budgets that change the plan). The JAX engine
 runs once per scenario (module-scoped fixtures)."""
 
 import copy
@@ -199,21 +201,38 @@ def test_torch_search_beyond_the_profiled_tp_fails_like_jax(tmp_path):
 
 
 def test_torch_hier_dp_search_raises_by_name(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="search.hier_dp=1.*ROADMAP item 14"):
-        run("port", tmp_path, hier_dp=1, **COARSE)
+    """``search.hier_dp=1`` searches now (it raised by name until the
+    collective schedules were ported): on the golden fixtures, which fit
+    no per-algorithm curve, the hierarchical term prices nothing, so the
+    plan equals JAX's and the golden plan, byte for byte."""
+    outs = [run(pkg, tmp_path / pkg, hier_dp=1, **COARSE)
+            for pkg in ("jax", "port")]
+    assert outs[0] == outs[1] and outs[1][0] == GOLDEN_COARSE
+    assert "hier_dp" not in json.loads(outs[1][1])
 
 
-def test_torch_hbm_budget_gate_raises_by_name(tmp_path):
+def test_torch_hbm_budget_gate_raises_by_name(tmp_path, capsys):
+    """``search.hbm_budget_gb > 0`` runs the memory doctor's gate now (it
+    raised by name until the doctor was ported): world-1 searches equal
+    JAX's, with and without a feasible plan, and the gate logs as JAX's."""
+    from hetu_galvatron_tpu.core.args_schema import ModelArgs as JM
     from hetu_galvatron_tpu_torch.core.args_schema import ModelArgs
 
-    with pytest.raises(NotImplementedError,
-                       match="hbm_budget_gb=70.*ROADMAP item 16"):
-        run("port", tmp_path, layers=4, model_cfg=ModelArgs(),
-            hbm_budget_gb=70, **dict(WORLD1, memory_constraint=80))
+    for i, (budget, kw) in enumerate(((70, dict(WORLD1, memory_constraint=80)),
+                                      (0.001, dict(WORLD1,
+                                                   memory_constraint=80)),
+                                      (70, dict(WORLD1)))):
+        outs = []
+        for pkg, M in (("jax", JM), ("port", ModelArgs)):
+            res = run(pkg, tmp_path / f"{pkg}{i}", layers=4, model_cfg=M(),
+                      hbm_budget_gb=budget, **kw)
+            outs.append((res, capsys.readouterr().out.count(
+                "hbm gate: pruned")))
+        assert outs[0] == outs[1], (budget, outs)
+        if budget == 0.001:
+            assert outs[1][0][0] == -1.0 and outs[1][1] > 0
     # without a feasible plan the gate has nothing to judge, as in JAX
-    assert run("port", tmp_path / "none", layers=4, model_cfg=ModelArgs(),
-               hbm_budget_gb=70, **dict(WORLD1))[0] == -1.0
+    assert outs[1][0][0] == -1.0 and outs[1][1] == 0
 
 
 def _two_layertypes(tmp_path):

@@ -10,7 +10,8 @@ few steps timed with CUDA events, then the same number traced with
 ``torch.profiler``. It sums the device time of every kernel by category
 (the flash kernels K1-K3, the cross-entropy kernels K4/K5, cuBLAS matrix
 products, the optimizer's foreach kernels, elementwise and reduction
-kernels, copies). The device's idle share is one minus the union of kernel
+kernels, copies), by ``observability/trace_analysis.op_category``: the one
+table the trace attribution reads too. The device's idle share is one minus the union of kernel
 intervals over the traced wall time, and also over the untraced step,
 which the profiler's host work does not stretch. Extra ``key=value``
 arguments override the config as in ``train_dist``
@@ -63,29 +64,6 @@ GPT2_YAML = os.path.join(ROOT, "hetu_galvatron_tpu", "models", "configs",
                          "gpt2-small.yaml")
 WARMUP, STEPS = 3, 4
 
-CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("flash K1 (fwd)", ("flash_fwd_kernel",)),
-    ("flash K2 (bwd dk/dv)", ("flash_bwd_dkdv_kernel",)),
-    ("flash K3 (bwd dq)", ("flash_bwd_dq_kernel",)),
-    ("CE K4 (fwd)", ("ce_fwd_kernel",)),
-    ("CE K5 (bwd)", ("ce_bwd_kernel",)),
-    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
-                         "sm80_")),
-    ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
-    ("softmax / norm / reduce", ("softmax", "norm", "reduce", "logsumexp")),
-    ("elementwise", ("elementwise", "vectorized", "gelu")),
-    ("copy / cast / fill", ("copy", "memcpy", "memset", "fill", "cat")),
-)
-
-
-def category(name: str) -> str:
-    low = name.lower()
-    for cat, keys in CATEGORIES:
-        if any(k in low for k in keys):
-            return cat
-    return "other"
-
-
 def union_us(intervals) -> float:
     total, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
@@ -111,6 +89,9 @@ def main(argv) -> int:
         corpus_tokenizer,
         packed_corpus_overrides,
         write_random_corpus,
+    )
+    from hetu_galvatron_tpu_torch.observability.trace_analysis import (
+        op_category,
     )
     from hetu_galvatron_tpu_torch.ops import _build
 
@@ -172,7 +153,7 @@ def main(argv) -> int:
     by_cat, by_name = {}, {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
-        cat = category(e.name)
+        cat = op_category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy_us = union_us((e.time_range.start, e.time_range.end)
