@@ -214,13 +214,37 @@ each of which ends the run with a non-zero exit when it fails:
     (i) ``cli.check --plan`` and ``--plan --memory --hbm-gb 80`` on the
     64 GB plan, each in a child process, exit 0. ``python3 chip_smoke.py
     --plan-only`` runs phases 1, 2 and 15.
+16. main path of slice 12, the pipeline engine (``runtime/pipeline.py``)
+    through ``train``, one rank a stage, every stage on this card (the
+    run logs that the ranks share it): (a) GPT-2 small uncut, pp 4 GPipe,
+    batch 8 in 4 microbatches at seq 1024, 6 steps: the step-0 loss
+    against a pp=1 run of the same weights, batch and chunks within 1e-4
+    relative, phase 5's loss gate, ``wte`` against the last stage's
+    ``whead.T`` within 1e-6 relative (bit equality printed), exact
+    launches; the same run saved at step 3 and resumed in a fresh
+    ``train`` to step 6 must equal it bit for bit (losses, a SHA-256 of
+    every stage parameter); (b) Qwen2.5-7B widths at 4 layers, seq 4096,
+    batch 4 in 4 microbatches on phase 6's packed corpus: pp 2 1F1B from
+    a JSON plan (division [2, 2]) and pp 2 x vpp 2 ([1, 1, 1, 1]), no
+    per-layer checkpoint, 4 steps each, against a pp=1 run with the plain
+    cross-entropy and the same chunks: step-0 losses within 1e-4
+    relative, exact launches, peak under 79 GiB; step ms, peak and the
+    memory doctor's stage peaks summed printed beside pp=1's; (c) T5-3B
+    uncut, pp 2 [24, 24] GPipe, batch 16 in 2 microbatches, 3 steps:
+    phase 11's loss gate, exact launches, peak. Launches a step: K1 (2 L
+    - L_head + C) and K2, K3 L a microbatch (a T5 decoder layer counts
+    twice), K4/K5 none: the head stage runs the plain cross-entropy, as
+    JAX's does. Each run also prints the stage spans' host ms a
+    microbatch. ``python3 chip_smoke.py --pipe-only`` runs phases 1, 2
+    and 16.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
 layers, steps and evals say.
 
 The last lines are the serving JSON line (phase 14's numbers and gates),
-the plan JSON line (phase 15's), the kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
+the plan JSON line (phase 15's), the pipeline JSON line (phase 16's), the
+kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Each kernel's row carries, under
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
@@ -4013,6 +4037,418 @@ def hbm_gate_path(search, plans, runs, doctor, prefix, cfg, tmp, smi):
     return out
 
 
+# -- phase 16: the pipeline engine, one rank a stage on one card -------------
+
+PIPE_PHASE = ("phase 16: main path of slice 12 (the pipeline engine through "
+              "train_dist, one rank a stage on one card: GPT-2 small pp4 "
+              "GPipe with a resume drill, Qwen2.5-7B widths pp2 1F1B and "
+              "pp2 x vpp2, T5-3B pp2 GPipe)")
+PIPE_GPT2 = "gpt2-small-pp4-gpipe"
+PIPE_QWEN = f"qwen2.5-7b-{QWEN_LAYERS}-layers-pp2-1f1b"
+PIPE_QWEN_VPP = f"qwen2.5-7b-{QWEN_LAYERS}-layers-pp2-vpp2-1f1b"
+PIPE_T5 = "t5-3b-pp2-gpipe"
+PIPE_GPT2_STEPS, PIPE_SAVE_AT = 6, 3
+PIPE_QWEN_STEPS, PIPE_QWEN_BSZ = 4, 4
+PIPE_T5_STEPS = 3
+PIPE_CHUNKS = 4
+PIPE_LOSS_RTOL = 1e-4  # step-0 loss against the pp=1 run of the same batch
+# steps 1-3's losses and step 0's grad norm against the pp=1 run's: GPT-2
+# equals it bit for bit; the Qwen runs read at most 2.5e-5 and 1.3e-5 on
+# an H100 (bf16 cotangents scaled by token-count microbatch weights
+# before the backward at pp=1, fp32 gradients after it in the pipeline)
+PIPE_LATER_RTOL = 1e-4
+PIPE_NORM_RTOL = 1e-4
+TIED_RTOL = 1e-6  # wte against whead.T (JAX's test_pipeline_tied_embeddings)
+# overrides every phase-16 run takes on top of its own: a CPU dry run at
+# tiny widths monkeypatches them (with torch.cuda's calls)
+PIPE_EXTRA = []
+
+
+def pipe_launches(hpc, cfg, microbatches: int):
+    """K1-K5 a step of the pipeline engine: per microbatch, K1 ``2 L -
+    L_head + C`` (every non-head chunk runs its layers without a graph and
+    again in the backward's recompute, the head chunk once fused with its
+    backward, a checkpointed layer once more) and K2, K3 ``L``, where a t5
+    decoder layer counts twice (self- and cross-attention); the head runs
+    the plain cross-entropy, so no K4/K5."""
+    n_enc, dec = hpc.num_encoder_layers, 2 if cfg.model_type == "t5" else 1
+    attn = [1 if i < n_enc else dec for i in range(len(hpc.layers))]
+    head = attn[len(attn) - hpc.pp_division[-1]:]
+    ckpt = sum(a for a, s in zip(attn, hpc.layers) if s.checkpoint)
+    k1 = 2 * sum(attn) - sum(head) + ckpt
+    return {"flash_fwd": k1 * microbatches,
+            "flash_bwd_dkdv": sum(attn) * microbatches,
+            "flash_bwd_dq": sum(attn) * microbatches,
+            "ce_fwd": 0, "ce_bwd": 0}
+
+
+def span_host_ms():
+    """The host milliseconds the pipeline's stage spans have taken so far
+    (``pp/fwd_s*`` and ``pp/bwd_s*``, the registry's ``span_ms``)."""
+    from hetu_galvatron_tpu_torch.observability.registry import get_registry
+
+    return sum(m.total for m in get_registry().metrics()
+               if m.name == "span_ms" and any(
+                   s in m.labels.get("path", "")
+                   for s in ("pp/fwd_s", "pp/bwd_s")))
+
+
+def pipe_train(tag, yaml, over):
+    """One ``train`` run of phase 16 with the launch counters reset just
+    before it and read just after: its losses, launches, peak memory, step
+    ms (CUDA events after the warm-up), the stage spans' host ms a
+    microbatch over the timed steps, the parameters' digests and the
+    final state."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.ops import _build
+    from hetu_galvatron_tpu_torch.runtime.hybrid_config import (
+        get_hybrid_parallel_config,
+    )
+
+    args = load_config(yaml, ["parallel.mixed_precision=bf16",
+                              "profile.profile=1",
+                              f"profile.profile_warmup={PROFILE_WARMUP}",
+                              *over, *PIPE_EXTRA])
+    hpc = get_hybrid_parallel_config(args, max(args.parallel.num_devices, 1))
+    host, norms = {}, []
+
+    def on_step(it, metrics):
+        norms.append(metrics["grad_norm"])  # read after the run
+        if it == PROFILE_WARMUP - 1:
+            host["from"] = span_host_ms()
+
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(args, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = len(out["losses"])
+    res = dict(
+        losses=out["losses"], launches=dict(_build.launch_counts),
+        grad_norms=[float(g) for g in norms],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        step_ms=out["iter_ms"], wall_s=wall, plan=hpc.describe(),
+        start_iter=out["start_iter"], params=out["params"],
+        digests=param_digests(out["params"]), hpc=hpc, cfg=args.model)
+    if hpc.pp_deg > 1 and "from" in host:
+        res["host_ms_per_microbatch"] = (
+            (span_host_ms() - host["from"])
+            / ((steps - PROFILE_WARMUP) * hpc.chunks))
+    del out
+    log(f"  {tag}: losses {res['losses']}; step {res['step_ms']} ms "
+        f"(CUDA events, steps {PROFILE_WARMUP}..{steps - 1}); peak "
+        f"{res['peak_gib']:.2f} GiB; launches {res['launches']}; "
+        f"{wall:.1f} s")
+    return res
+
+
+def against_pp1(tag, what, got, want, tol):
+    """One reading of a pipeline run against its pp=1 run, gated at the
+    relative ``tol``; returns the relative difference."""
+    rel = abs(got - want) / abs(want)
+    log(f"  {tag}: {what} {got!r} against pp=1 {want!r}: relative "
+        f"{rel:.3e} (gate {tol})")
+    if rel > tol:
+        raise SmokeFailure(f"{tag}: {what} {got} departs from the pp=1 "
+                           f"run's {want} by {rel:.3e}")
+    return rel
+
+
+def pipe_gates(tag, res, *, steps, want_per_step, ref=None, expect0=None):
+    """Phase 16's gates on one pipeline run: finite losses and grad norms;
+    against the pp=1 run ``ref`` of the same weights and batches, the
+    step-0 loss, the step-0 grad norm (the backward, the microbatch
+    weights, the tied sum, the norm less one tied copy) and the losses of
+    the later steps both ran (the update and the clip); else the step-0
+    loss against the phase's expected value; exact launches, peak
+    memory. Returns the relative differences from ``ref``."""
+    losses, norms = res["losses"], res["grad_norms"]
+    if len(losses) != steps or not all(map(math.isfinite, losses + norms)):
+        raise SmokeFailure(f"{tag}: losses {losses}, grad norms {norms} not "
+                           f"{steps} finite")
+    rel = {}
+    if ref is not None:
+        rel["loss0"] = against_pp1(tag, "step-0 loss", losses[0],
+                                   ref["losses"][0], PIPE_LOSS_RTOL)
+        rel["grad_norm0"] = against_pp1(tag, "step-0 grad norm", norms[0],
+                                        ref["grad_norms"][0], PIPE_NORM_RTOL)
+        both = min(len(ref["losses"]), steps)
+        rel["later_losses"] = [
+            against_pp1(tag, f"step-{i} loss", losses[i], ref["losses"][i],
+                        PIPE_LATER_RTOL) for i in range(1, both)]
+        rel["later_grad_norms"] = [  # printed, not gated
+            abs(norms[i] - ref["grad_norms"][i]) / abs(ref["grad_norms"][i])
+            for i in range(1, both)]
+        log(f"  {tag}: steps 1-{both - 1} grad norms against pp=1: relative "
+            + ", ".join(f"{r:.3e}" for r in rel["later_grad_norms"])
+            + " (printed)")
+    if expect0 is not None:
+        log(f"  {tag}: step-0 loss {losses[0]:.4f} against ln V + "
+            f"sigma^2/2 = {expect0:.4f} (gate 0.5)")
+        if abs(losses[0] - expect0) > 0.5:
+            raise SmokeFailure(f"{tag}: step-0 loss {losses[0]:.4f} is not "
+                               f"within 0.5 of {expect0:.4f}")
+    want = {k: v * steps for k, v in want_per_step.items()}
+    if res["launches"] != want:
+        raise SmokeFailure(f"{tag}: launches {res['launches']}, want {want}")
+    if res["peak_gib"] >= MEM_LIMIT_GIB:
+        raise SmokeFailure(f"{tag}: peak {res['peak_gib']:.2f} GiB is not "
+                           f"under {MEM_LIMIT_GIB} GiB")
+    return rel
+
+
+def pipe_summary(res, steps, want_per_step, **extra):
+    """A run's record for the pipeline JSON line and the kernels line."""
+    return dict(
+        plan=res["plan"], losses=res["losses"],
+        grad_norms=res["grad_norms"], step_ms=res["step_ms"],
+        peak_gib=res["peak_gib"], wall_s=res["wall_s"],
+        host_ms_per_microbatch=res.get("host_ms_per_microbatch"),
+        launches=res["launches"], launches_per_step=want_per_step,
+        eval_launches={k: 0 for k in want_per_step}, steps=steps, **extra)
+
+
+def pipe_plan_file(tmp, name, division, vpp=1):
+    """A searched-style JSON plan of the Qwen cell: pp 2, ``division``,
+    1F1B, no per-layer checkpoint, batch 4 in 4 microbatches."""
+    n = QWEN_LAYERS
+    plan = {"pp_deg": 2, "tp_sizes_enc": ",".join(["1"] * n),
+            "tp_consecutive_flags": ",".join(["1"] * n),
+            "dp_types_enc": ",".join(["0"] * n),
+            "use_sp": ",".join(["0"] * n),
+            "cp_sizes_enc": ",".join(["1"] * n),
+            "checkpoint": ",".join(["0"] * n),
+            "global_bsz": PIPE_QWEN_BSZ, "chunks": PIPE_CHUNKS,
+            "pp_division": ",".join(map(str, division)),
+            "pipeline_type": "pipedream_flush", "default_dp_type": "ddp",
+            "vtp": 1, "vsp": 0, "embed_sdp": 0}
+    if vpp > 1:
+        plan["vpp_deg"] = vpp
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        json.dump(plan, f, indent=4)
+    return path
+
+
+def pipe_gpt2(smi, tmp):
+    """(a) GPT-2 small uncut, pp 4 GPipe, 4 microbatches of 2 at seq 1024:
+    against a pp=1 run of the same weights and batch, the tied copies,
+    exact launches, and the resume drill."""
+    common = ["parallel.global_train_batch_size=8",
+              f"parallel.chunks={PIPE_CHUNKS}",
+              f"train.lr_decay_iters={PIPE_GPT2_STEPS}"]
+    pp4 = common + ["parallel.pp_deg=4", "parallel.num_devices=4",
+                    "parallel.pipeline_type=gpipe"]
+    ref = pipe_train("(a) pp=1, chunks 4", GPT2_YAML,
+                     common + ["train.train_iters=4"])
+    del ref["params"]
+    run = pipe_train("(a) pp=4 GPipe", GPT2_YAML,
+                     pp4 + [f"train.train_iters={PIPE_GPT2_STEPS}"])
+    want = pipe_launches(run["hpc"], run["cfg"], PIPE_CHUNKS)
+    rel = pipe_gates("(a)", run, steps=PIPE_GPT2_STEPS, want_per_step=want,
+                     ref=ref, expect0=math.log(run["cfg"].padded_vocab_size))
+    wte = run["params"][0]["embed"]["wte"].detach()
+    whead = run["params"][-1]["head"]["whead"].detach()
+    tied = float((wte - whead.t()).abs().max() / wte.abs().max())
+    bits = bool((wte == whead.t()).all())
+    log(f"  (a) after step {PIPE_GPT2_STEPS}: max |wte - whead.T| / max "
+        f"|wte| = {tied:.3e} (gate {TIED_RTOL}); bit-equal: {bits}")
+    if tied > TIED_RTOL:
+        raise SmokeFailure(f"(a) the tied copies departed: {tied:.3e}")
+    del run["params"], wte, whead
+    ck = os.path.join(tmp, "pipe_ckpt")
+    first = pipe_train("(a) drill, to the save", GPT2_YAML, pp4 + [
+        f"train.train_iters={PIPE_SAVE_AT}", f"ckpt.save={ck}",
+        f"ckpt.save_interval={PIPE_SAVE_AT}"])
+    rest = pipe_train("(a) drill, resumed", GPT2_YAML, pp4 + [
+        f"train.train_iters={PIPE_GPT2_STEPS}", f"ckpt.load={ck}"])
+    del first["params"], rest["params"]
+    stitched = first["losses"] + rest["losses"]
+    same = (rest["start_iter"] == PIPE_SAVE_AT
+            and stitched == run["losses"]
+            and rest["digests"] == run["digests"])
+    log(f"  (a) resume drill: saved at step {PIPE_SAVE_AT}, resumed at "
+        f"{rest['start_iter']}; stitched losses equal: "
+        f"{stitched == run['losses']}; {len(run['digests'])} stage "
+        f"parameters' SHA-256 equal: {rest['digests'] == run['digests']} "
+        f"[{smi}]")
+    if not same:
+        raise SmokeFailure(f"(a) the resumed run departs: {stitched} against "
+                           f"{run['losses']}")
+    log(f"  (a) step {run['step_ms']:.2f} ms against pp=1 "
+        f"{ref['step_ms']:.2f} ms ({run['step_ms'] / ref['step_ms']:.3f}x); "
+        f"peak {run['peak_gib']:.2f} GiB against pp=1 {ref['peak_gib']:.2f}; "
+        f"host {run['host_ms_per_microbatch']:.3f} ms a microbatch in the "
+        f"stage spans [{smi}]")
+    return pipe_summary(run, PIPE_GPT2_STEPS, want, pp1_losses=ref["losses"],
+                        pp1_grad_norms=ref["grad_norms"],
+                        against_pp1=rel, pp1_step_ms=ref["step_ms"],
+                        pp1_peak_gib=ref["peak_gib"], tied_rel=tied,
+                        tied_bit_equal=bits, resume_bit_identical=same)
+
+
+def pipe_qwen(smi, tmp, prefix):
+    """(b) Qwen2.5-7B widths at 4 layers, seq 4096, batch 4 in 4
+    microbatches, phase 6's packed corpus, plain CE: pp 2 1F1B and pp 2 x
+    vpp 2 from JSON plans against a pp=1 run with the same chunks."""
+    from hetu_galvatron_tpu_torch.analysis.memory_doctor import (
+        diagnose_memory,
+    )
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+
+    common = [f"model.num_hidden_layers={QWEN_LAYERS}",
+              "model.use_fused_ce=false",
+              f"train.train_iters={PIPE_QWEN_STEPS}",
+              *packed_corpus_overrides(prefix)]
+    ref = pipe_train("(b) pp=1, chunks 4, plain CE", QWEN_YAML, common + [
+        f"parallel.global_train_batch_size={PIPE_QWEN_BSZ}",
+        f"parallel.chunks={PIPE_CHUNKS}"])
+    del ref["params"]
+    out = {"pp1": dict(step_ms=ref["step_ms"], peak_gib=ref["peak_gib"],
+                       losses=ref["losses"], grad_norms=ref["grad_norms"],
+                       launches=ref["launches"])}
+    for key, name, division, vpp in (
+            (PIPE_QWEN, "pp2.json", [2, 2], 1),
+            (PIPE_QWEN_VPP, "pp2_vpp2.json", [1, 1, 1, 1], 2)):
+        plan = pipe_plan_file(tmp, name, division, vpp)
+        run = pipe_train(f"(b) {key}", QWEN_YAML, common + [
+            "parallel.num_devices=2", "parallel.config_mode=json",
+            f"parallel.galvatron_config_path={plan}"])
+        del run["params"]
+        want = pipe_launches(run["hpc"], run["cfg"], PIPE_CHUNKS)
+        rel = pipe_gates(f"(b) {key}", run, steps=PIPE_QWEN_STEPS,
+                         want_per_step=want, ref=ref)
+        rep = diagnose_memory(plan, run["cfg"], 2, schedule_impl="host")
+        if not rep.ok:
+            raise SmokeFailure(f"memory doctor on {name}: {rep.errors}")
+        doctor_mb = sum(st.total_mb for st in rep.stages)
+        log(f"  (b) {key}: step {run['step_ms']:.2f} ms against pp=1 "
+            f"{ref['step_ms']:.2f} ms ({run['step_ms'] / ref['step_ms']:.3f}"
+            f"x); peak {run['peak_gib']:.2f} GiB against pp=1 "
+            f"{ref['peak_gib']:.2f}; the memory doctor's stage peaks summed "
+            f"{doctor_mb / 1024:.2f} GiB (reported); host "
+            f"{run['host_ms_per_microbatch']:.3f} ms a microbatch in the "
+            f"stage spans [{smi}]")
+        out[key] = pipe_summary(run, PIPE_QWEN_STEPS, want, against_pp1=rel,
+                                doctor_stage_sum_gib=doctor_mb / 1024,
+                                step_over_pp1=run["step_ms"] / ref["step_ms"])
+    return out
+
+
+def pipe_t5(smi):
+    """(c) T5-3B uncut (24 + 24 layers, tied), pp 2 [24, 24] GPipe, batch
+    16 in 2 microbatches at seq 512 split 256 + 256, no per-layer
+    checkpoint: phase 11's loss gate, exact launches, peak memory."""
+    run = pipe_train("(c) T5-3B pp2 GPipe", T5_YAML, [
+        f"parallel.global_train_batch_size={T5B}", "parallel.pp_deg=2",
+        "parallel.num_devices=2", "parallel.pipeline_type=gpipe",
+        "parallel.chunks=2", "parallel.global_checkpoint=0",
+        f"train.train_iters={PIPE_T5_STEPS}"])
+    del run["params"]
+    want = pipe_launches(run["hpc"], run["cfg"], 2)
+    pipe_gates("(c)", run, steps=PIPE_T5_STEPS, want_per_step=want,
+               expect0=zoo_expected_loss(run["cfg"]))
+    log(f"  (c) step {run['step_ms']:.2f} ms, peak {run['peak_gib']:.2f} "
+        f"GiB, host {run.get('host_ms_per_microbatch', float('nan')):.3f} "
+        f"ms a microbatch in the stage spans [{smi}]")
+    return pipe_summary(run, PIPE_T5_STEPS, want)
+
+
+def check_pipe_kernels(checks, peak_flops, peak_bytes):
+    """K1-K3 at phase 16's microbatch shapes, against their plain versions
+    and timed beside the library: GPT-2's (batch 8 in 4: B=2), the Qwen
+    cell's (batch 4 in 4: B=1, packed, three documents a row as phase
+    3's) and T5's (batch 16 in 2: B=8; the encoder's non-causal
+    self-attention, the decoder's causal self-attention and the
+    cross-attention); the records join ``checks``."""
+    import torch
+
+    gb, qb, tb = 8 // PIPE_CHUNKS, PIPE_QWEN_BSZ // PIPE_CHUNKS, T5B // 2
+    flash = {
+        PIPE_GPT2: check_path_flash(
+            "pipeline GPT-2 shape", f"pipe gpt2 B={gb} N=K={N} S={S} D={D} "
+            "bf16 causal", (gb, N, N, S, D), False, peak_flops, peak_bytes),
+        PIPE_QWEN: check_path_flash(
+            "pipeline Qwen shape", f"pipe qwen B={qb} N={QN} K={QK} S={QS} "
+            f"D={QD} bf16 seg", (qb, QN, QK, QS, QD), True, peak_flops,
+            peak_bytes),
+        "t5_enc": check_path_flash(
+            "pipeline T5 encoder shape", f"pipe t5 enc B={tb} N=K={T5N} "
+            f"S={T5S} D={T5D} bf16 noncausal", (tb, T5N, T5N, T5S, T5D),
+            False, peak_flops, peak_bytes, causal=False),
+        "t5_dec": check_path_flash(
+            "pipeline T5 decoder shape", f"pipe t5 dec B={tb} N=K={T5N} "
+            f"S={T5S} D={T5D} bf16 causal", (tb, T5N, T5N, T5S, T5D), False,
+            peak_flops, peak_bytes, causal=True),
+        "t5_cross": check_path_flash(
+            "pipeline T5 cross shape", f"pipe t5 cross B={tb} N=K={T5N} "
+            f"S=Sk={T5S} D={T5D} bf16 noncausal", (tb, T5N, T5N, T5S, T5D),
+            False, peak_flops, peak_bytes, causal=False, layout="cross",
+            sk=T5S),
+    }
+    for res in flash.values():
+        for k, recs in res["checks"].items():
+            checks[k] += recs
+    torch.cuda.empty_cache()
+    return flash
+
+
+def pipe_paths(smi: str, checks, peak_flops, peak_bytes):
+    """Phase 16: K1-K3 at its microbatch shapes, then (a)-(c) in a
+    temporary directory removed at exit; returns the runs' record and the
+    kernels' checks and times."""
+    import torch
+
+    t0 = time.perf_counter()
+    flash = check_pipe_kernels(checks, peak_flops, peak_bytes)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as tmp:
+        out = {PIPE_GPT2: pipe_gpt2(smi, tmp)}
+        torch.cuda.empty_cache()
+        prefix = write_qwen_corpus(tmp)[0]
+        out.update(pipe_qwen(smi, tmp, prefix))
+        torch.cuda.empty_cache()
+        out[PIPE_T5] = pipe_t5(smi)
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    out["device"] = smi
+    log(f"  phase 16 in {out['wall_s']:.1f} s [{smi}]")
+    return out, flash
+
+
+def pipe_blocks(checks, pipe, flash):
+    """Phase 16's K1-K3 blocks: each pipeline run's launches beside the
+    checks and times at its microbatch shape (``flash``, from
+    :func:`check_pipe_kernels`): both Qwen runs at the Qwen cell's, T5 at
+    its decoder's causal self-attention with all three of its shapes
+    under ``by_shape``."""
+    def block(k, run, key):
+        timing = flash[key]["timing"][k]
+        out = path_block(k, run, timing, max_err(
+            checks, k, timing["shape"], ("elementwise",)), timing["shape"])
+        out.update(flash[key]["report"][k])
+        if k in BWD:
+            rep = flash[key]["report"]
+            out.update(pair_ms=rep["pair_ms"],
+                       pair_beats_library=rep["pair_beats_library"])
+        return out
+
+    out = {}
+    for k in FLASH:
+        out[k] = {PIPE_GPT2: block(k, pipe[PIPE_GPT2], PIPE_GPT2),
+                  PIPE_QWEN: block(k, pipe[PIPE_QWEN], PIPE_QWEN),
+                  PIPE_QWEN_VPP: block(k, pipe[PIPE_QWEN_VPP], PIPE_QWEN),
+                  PIPE_T5: block(k, pipe[PIPE_T5], "t5_dec")}
+        out[k][PIPE_T5]["by_shape"] = {
+            key: block(k, pipe[PIPE_T5], key)
+            for key in ("t5_enc", "t5_dec", "t5_cross")}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4069,6 +4505,19 @@ def main() -> int:
         plan = plan_paths(smi)
         log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
         log(json.dumps({"plan": plan}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--pipe-only"]:
+        phase(PIPE_PHASE)
+        checks = {k: [] for k in FLASH}
+        pipe, pipe_flash = pipe_paths(smi, checks, peak_flops, peak_bytes)
+        log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+        log(json.dumps({"pipeline": pipe}))
+        log(json.dumps({"pipeline_kernels": pipe_blocks(checks, pipe,
+                                                        pipe_flash)}))
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -4268,6 +4717,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(PLAN_PHASE)
     plan = plan_paths(smi)
+    torch.cuda.empty_cache()
+    phase(PIPE_PHASE)
+    pipe, pipe_flash = pipe_paths(smi, checks, peak_flops, peak_bytes)
 
     # one block per path that runs the kernel: its launches beside the
     # times measured at that path's shape
@@ -4329,6 +4781,8 @@ def main() -> int:
                                 (times, lib, bnd)).items():
         earlier[k].update(blocks)
         earlier[k][PLAN_PATH] = qwen_block(k, plan, checks, qwen_flash, ce)
+    for k, blocks in pipe_blocks(checks, pipe, pipe_flash).items():
+        earlier[k].update(blocks)
     rows = kernel_rows(checks, zoo_k, zoo, earlier)
     rows[0]["autograd_checks"] = auto
     rows[3]["autograd_checks"] = ce["zloss"]
@@ -4337,6 +4791,7 @@ def main() -> int:
     log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"serving": serving}))
     log(json.dumps({"plan": plan}))
+    log(json.dumps({"pipeline": pipe}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -51,6 +51,9 @@ from typing import Dict, List, Optional, Sequence, Union
 # whole module, a tuple = those top-level functions and what nests in them
 HOT_PATH_MODULES: Dict[str, Union[bool, Sequence[str]]] = {
     "runtime/trainer.py": True,
+    # the pipeline's schedule: a host sync there would serialize the
+    # stages' launches (JAX runtime/pipeline.py:970-971)
+    "runtime/pipeline.py": True,
     "cli/train_dist.py": ("train",),
     "serving/engine.py": True,
     "serving/scheduler.py": True,

@@ -15,8 +15,9 @@ than one device are diagnosed exactly as JAX diagnoses them: the doctor
 reads the plan, not the runtime.
 
 The one difference from JAX's report: where the port's runtime refuses
-the plan today (``runtime/hybrid_config.py::check_plan_width``, or a world
-above one device), the report adds one warning that quotes the refusal and
+the plan today (``runtime/hybrid_config.py::check_plan_width``: a stage
+wider than one rank, ``hier_dp``, or a world other than ``pp_deg``), the
+report adds one warning that quotes the refusal and
 its ROADMAP item, so the doctor never tells a user that the port runs a
 plan it refuses.
 """
@@ -111,20 +112,17 @@ def _attention_kernel(s: Any, cfg: Any, cp_zigzag: bool) -> str:
 def port_refusal(name: str, layers: List[Any], vocab: Any,
                  extras: Dict[str, Any], world_size: int) -> Optional[str]:
     """The refusal the port's runtime raises for this plan today (its
-    ``check_plan_width`` over the world-less parse, as
-    ``get_hybrid_parallel_config`` runs it, then the world size), or None
-    when the port runs it."""
+    ``check_plan_width`` over the world-less parse at this world, as
+    ``get_hybrid_parallel_config`` runs it), or None when the port runs
+    it."""
     from hetu_galvatron_tpu_torch.runtime.hybrid_config import (
-        ITEM10,
         check_plan_width,
     )
 
     try:
-        check_plan_width(name, layers, vocab, extras)
+        check_plan_width(name, layers, vocab, extras, world_size=world_size)
     except NotImplementedError as e:
         return str(e)
-    if world_size > 1:
-        return f"plan {name}: world size {world_size} {ITEM10}"
     return None
 
 

@@ -1,10 +1,21 @@
 """Training launcher: ``python -m hetu_galvatron_tpu_torch.cli.train_dist
 <config.yaml> [key=value ...]``.
 
-Counterpart of ``hetu_galvatron_tpu/cli/train_dist.py`` for its pp=1,
-single-device branch: load config -> initialize -> plan -> init model ->
-optimizer -> data -> resume -> step loop with timing, loss log, fault
-checks and checkpoints -> exit code. On a CUDA device with
+Counterpart of ``hetu_galvatron_tpu/cli/train_dist.py`` for its pp=1
+single-device branch and its host-sequenced pipeline branch (:880-932):
+load config -> initialize -> plan -> init model -> optimizer -> data ->
+resume -> step loop with timing, loss log, fault checks and checkpoints
+-> exit code. A plan with ``pp_deg > 1`` whose stages each run one rank
+(``parallel.num_devices`` equal to ``pp_deg``; GLOBAL mode's
+``parallel.pp_deg``, ``pipeline_type``, ``virtual_pp_deg``, or a JSON
+plan's ``pp_deg``, ``pp_division``, ``vpp_deg``) trains through
+``runtime/pipeline.PipelineEngine``: the model is split into stage trees,
+the optimizer state, checkpoints and the resume are per stage, the
+evaluations run ``eval_step``, and the ramp passes its microbatch count.
+The stages run the plain cross-entropy whatever ``model.use_fused_ce``
+says, as JAX's do. ``pipeline.schedule_impl=compiled`` (the
+single-program schedule) is refused: it is not ported, and the launcher
+never runs the host engine in its place. On a CUDA device with
 ``model.use_flash_attn`` every layer's attention core is the port's
 ``flash_sdpa`` (the CUDA kernels K1-K3); ``model.use_fused_ce`` runs the
 loss through ``fused_ce_nll`` (K4/K5) and ``parallel.global_checkpoint``
@@ -114,6 +125,8 @@ def unsupported_flags(args) -> list:
         "ckpt.load_format": args.ckpt.load_format == "hf",
         "tp_overlap.enable": args.tp_overlap.enable,
         "parallel.hier_dp": args.parallel.hier_dp,
+        # multi-slice layouts (JAX's pp + outer dp across DCN)
+        "parallel.dcn_slices > 1": args.parallel.dcn_slices > 1,
         "logging.tensorboard_dir": args.logging.tensorboard_dir,
         "logging.wandb_project": args.logging.wandb_project,
         "observability.tensorboard": obs.tensorboard,
@@ -131,8 +144,9 @@ def check_flags(args) -> None:
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not ported to hetu_galvatron_tpu_torch yet "
-            "(this slice runs single-device training with the batch-size "
-            "ramp, checkpoints, the fault lifecycle and observability)")
+            "(this slice runs single-device and one-rank-a-stage pipeline "
+            "training with the batch-size ramp, checkpoints, the fault "
+            "lifecycle and observability)")
 
 
 def _concat(mbs):
@@ -204,6 +218,7 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         MicrobatchIterator,
     )
     from hetu_galvatron_tpu_torch.runtime.optimizer import make_optimizer
+    from hetu_galvatron_tpu_torch.runtime.pipeline import PipelineEngine
     from hetu_galvatron_tpu_torch.runtime.rerun_machine import (
         FaultDrill,
         RerunDataIterator,
@@ -225,6 +240,13 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
     device = state.device
     hpc = get_hybrid_parallel_config(args, state.world_size)
     state.log(f"parallel plan: {hpc.describe()}")
+    pipe = hpc.pp_deg > 1
+    if pipe and args.pipeline.schedule_impl == "compiled":
+        raise NotImplementedError(
+            "pipeline.schedule_impl=compiled: the single-program pipeline "
+            "schedule (runtime/compiled_pipeline.py) is not ported yet "
+            "(ROADMAP item 12b); pipeline.schedule_impl=host runs the "
+            "host-sequenced engine")
 
     cfg = args.model
     params = init_causal_lm(cfg, seed=args.train.seed, device=device)
@@ -267,8 +289,10 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
             emit_plan_telemetry,
         )
 
+        # MFU over the cards the ranks run on: ranks sharing a card
+        # share its peak
         telemetry = make_telemetry(
-            args, world_size=state.world_size,
+            args, world_size=len(set(state.devices)),
             global_batch_size=hpc.global_bsz)
         emit_plan_telemetry(
             telemetry.registry, hpc, cfg,
@@ -293,42 +317,74 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
                       world=state.world_size)
     compute_dtype = compute_dtype_of(args.parallel.mixed_precision)
     t5 = cfg.model_type == "t5"
-    overrides = attention_overrides(cfg, device, cross=t5)
-    if overrides:
-        state.log("attention: flash kernels (CUDA K1-K3) on every layer"
-                  + (" (encoder, decoder and cross-attention)" if t5 else ""))
-    if cfg.use_fused_ce:
-        state.log("fused cross-entropy: " + (
-            "CUDA K4/K5" if device.type == "cuda"
-            else "plain versions of K4/K5 (CPU)"))
     if any(hpc.checkpoint_flags):
         state.log(f"per-layer remat ({cfg.remat_policy}) on "
                   f"{sum(hpc.checkpoint_flags)} of "
                   f"{len(hpc.checkpoint_flags)} layers")
-    moe = bool(cfg.num_experts)
-    loss_kw = dict(compute_dtype=compute_dtype,
-                   remat_flags=hpc.dec_flags, layer_overrides=overrides)
-    if t5:
-        # the plan's combined stack, split: its first layers are the
-        # encoder's
-        loss_kw.update(enc_remat_flags=hpc.enc_flags,
-                       enc_layer_overrides=attention_overrides(
-                           cfg, device, n_layers=hpc.num_encoder_layers))
-    loss_fn = make_loss_fn(cfg, **loss_kw)
-    step_loss_fn = make_loss_fn(cfg, with_moe_stats=moe, **loss_kw)
-    # one step per microbatch count (the ramp's), built on first use
-    steps_by_chunks = {hpc.chunks: make_forward_backward(
-        step_loss_fn, chunks=hpc.chunks, aux_stats=moe)}
+    if pipe:
+        engine = PipelineEngine(cfg, hpc, args.train, state.devices,
+                                compute_dtype=compute_dtype)
+        # the stage trees share the model's leaves on their device; from
+        # here the run's state is the list of stages
+        params = engine.split_params(params)
+        opt_state = engine.init_opt(params)
+        state.log(
+            f"pipeline: {len(engine.stages)} chunks on {hpc.pp_deg} stages "
+            f"({hpc.pipeline_type}), every stage's attention "
+            + ("through the flash kernels (CUDA K1-K3)"
+               if engine.stages[0].attn else "through the plain core")
+            + "; the head stage runs the plain cross-entropy")
 
-    def forward_backward_for(chunks):
-        if chunks not in steps_by_chunks:
-            steps_by_chunks[chunks] = make_forward_backward(
-                step_loss_fn, chunks=chunks, aux_stats=moe)
-        return steps_by_chunks[chunks]
+        def forward_backward_for(chunks):
+            return lambda p, b: engine.forward_backward(
+                p, b, num_microbatches=chunks)
 
-    names, leaves = zip(*named_leaves(params))
-    leaves = list(leaves)
-    opt_state = tx.init(leaves, names)
+        def apply_update(grads, metrics):
+            engine.apply_update(params, opt_state, grads, metrics)
+
+        def eval_loss(batch):
+            return engine.eval_step(params, batch)["loss"]
+    else:
+        overrides = attention_overrides(cfg, device, cross=t5)
+        if overrides:
+            state.log("attention: flash kernels (CUDA K1-K3) on every "
+                      "layer" + (" (encoder, decoder and cross-attention)"
+                                 if t5 else ""))
+        if cfg.use_fused_ce:
+            state.log("fused cross-entropy: " + (
+                "CUDA K4/K5" if device.type == "cuda"
+                else "plain versions of K4/K5 (CPU)"))
+        moe = bool(cfg.num_experts)
+        loss_kw = dict(compute_dtype=compute_dtype,
+                       remat_flags=hpc.dec_flags, layer_overrides=overrides)
+        if t5:
+            # the plan's combined stack, split: its first layers are the
+            # encoder's
+            loss_kw.update(enc_remat_flags=hpc.enc_flags,
+                           enc_layer_overrides=attention_overrides(
+                               cfg, device, n_layers=hpc.num_encoder_layers))
+        loss_fn = make_loss_fn(cfg, **loss_kw)
+        step_loss_fn = make_loss_fn(cfg, with_moe_stats=moe, **loss_kw)
+        # one step per microbatch count (the ramp's), built on first use
+        steps_by_chunks = {hpc.chunks: make_forward_backward(
+            step_loss_fn, chunks=hpc.chunks, aux_stats=moe)}
+
+        def forward_backward_for(chunks):
+            if chunks not in steps_by_chunks:
+                steps_by_chunks[chunks] = make_forward_backward(
+                    step_loss_fn, chunks=chunks, aux_stats=moe)
+            return steps_by_chunks[chunks]
+
+        names, leaves = zip(*named_leaves(params))
+        leaves = list(leaves)
+        opt_state = tx.init(leaves, names)
+
+        def apply_update(grads, metrics):
+            tx.update(leaves, grads, opt_state, metrics["grad_norm"])
+
+        def eval_loss(batch):
+            with torch.no_grad():
+                return float(loss_fn(params, batch))
     profiler = RuntimeProfiler(args, device=device)
     use_dropout = cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0
     rerun = RerunStateMachine(args.rerun)
@@ -401,8 +457,8 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         with goodput.measure("resume_replay"):
             res = load_latest_resilient(
                 ck.load, params, opt_state, hpc=hpc,
-                strict_plan=ck.distributed_checkpoint, expected_world=1,
-                log=state.log)
+                strict_plan=ck.distributed_checkpoint,
+                expected_world=hpc.world_size, log=state.log)
         if res is None:
             state.log(f"warning: {ck.load}: committed checkpoint vanished "
                       "before resume; starting fresh")
@@ -486,9 +542,8 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         return start, 0
 
     def run_eval(iterator) -> float:
-        with torch.no_grad():
-            vs = [float(loss_fn(params, to_device(next(iterator), device)))
-                  for _ in range(max(args.train.eval_iters, 1))]
+        vs = [eval_loss(to_device(next(iterator), device))
+              for _ in range(max(args.train.eval_iters, 1))]
         return float(np.mean(vs))
 
     try:
@@ -534,8 +589,7 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
                 if not rerun.enabled:
                     # nothing judges the loss: enqueue the update before
                     # the host waits for the loss
-                    opt_state = tx.update(leaves, grads, opt_state,
-                                          metrics["grad_norm"])
+                    apply_update(grads, metrics)
             loss_host = float(metrics["loss"])  # waits for the step
             # the drill may corrupt the loss (nan / spike), raise
             # InjectedCrash or deliver a real SIGTERM to this process
@@ -551,8 +605,7 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
                 data_iterator=data_iter)
             exit_code = rerun.exit_code_requested()
             if rerun.enabled and exit_code is None:
-                opt_state = tx.update(leaves, grads, opt_state,
-                                      metrics["grad_norm"])
+                apply_update(grads, metrics)
             del grads
             profiler.time_end(it)
             # the step's wall; each attempt's first iteration pays kernel

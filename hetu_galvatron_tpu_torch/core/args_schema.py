@@ -132,10 +132,28 @@ class ParallelArgs:
     num_devices: int = 0
     num_processes: int = 0
     hier_dp: bool = False
+    pipeline_type: str = "gpipe"
+    # ICI slices the job spans (JAX :187); above 1 is refused by name
+    dcn_slices: int = 1
 
     CHOICES: ClassVar[Dict[str, Tuple]] = {
         "config_mode": ("global", "json"),
         "mixed_precision": ("fp32", "bf16", "fp16"),
+        "pipeline_type": ("gpipe", "pipedream_flush"),
+    }
+
+
+@dataclass
+class PipelineArgs:
+    """JAX ``core/args_schema.py:237``: how a ``pp_deg > 1`` schedule
+    executes. ``host`` is the host-sequenced engine
+    (``runtime/pipeline.py``); ``cli/train_dist.py`` refuses ``compiled``
+    (the single-program schedule, not ported yet) by name."""
+
+    schedule_impl: str = "host"
+
+    CHOICES: ClassVar[Dict[str, Tuple]] = {
+        "schedule_impl": ("host", "compiled"),
     }
 
 
@@ -535,10 +553,10 @@ JAX_ONLY_KEYS: Dict[str, frozenset] = {
     "model": frozenset({"untie_streams"}),
     "parallel": frozenset({
         "global_tp_consec", "cp_zigzag", "global_etp_deg", "default_dp_type",
-        "vocab_tp", "vocab_sp", "vocab_cp", "embed_sdp", "pipeline_type",
-        "dp_axis_on_dcn", "coordinator_address", "process_id", "dcn_slices",
-        "hier_bucket_mb", "dp_schedule"}),
-    "pipeline": frozenset({"schedule_impl"}),
+        "vocab_tp", "vocab_sp", "vocab_cp", "embed_sdp", "dp_axis_on_dcn",
+        "coordinator_address", "process_id", "hier_bucket_mb",
+        "dp_schedule"}),
+    "pipeline": frozenset(),
     "tp_overlap": frozenset(),
     "train": frozenset({"check_loss", "deterministic_mode"}),
     "ckpt": frozenset(),
@@ -598,7 +616,8 @@ def build_section(cls, name: str, tree: Any):
 
 
 SECTIONS = {
-    "model": ModelArgs, "parallel": ParallelArgs, "tp_overlap": TpOverlapArgs,
+    "model": ModelArgs, "parallel": ParallelArgs, "pipeline": PipelineArgs,
+    "tp_overlap": TpOverlapArgs,
     "train": TrainArgs, "ckpt": CheckpointArgs, "data": DataArgs,
     "profile": ProfileArgs, "logging": LoggingArgs,
     "observability": ObservabilityArgs, "rerun": RerunArgs,
@@ -615,6 +634,7 @@ class CoreArgs:
     device: str = "cuda"
     model: ModelArgs = field(default_factory=ModelArgs)
     parallel: ParallelArgs = field(default_factory=ParallelArgs)
+    pipeline: PipelineArgs = field(default_factory=PipelineArgs)
     tp_overlap: TpOverlapArgs = field(default_factory=TpOverlapArgs)
     train: TrainArgs = field(default_factory=TrainArgs)
     ckpt: CheckpointArgs = field(default_factory=CheckpointArgs)

@@ -306,18 +306,30 @@ def layer_param_mb(model) -> float:
 
 def emit_plan_telemetry(registry: MetricsRegistry, hpc, model,
                         mixed_precision: bool = True) -> None:
-    """The one-shot ``plan`` event of a single-device plan, as the JAX
-    function emits it at world size 1: no layer communicates, so each
-    layer's entry holds its index alone. ``model`` and
-    ``mixed_precision`` price the collectives of wider plans, which are
+    """The one-shot ``plan`` event of a plan the port runs, as the JAX
+    function emits it (``plan_comm_volume`` :256): at one rank a stage no
+    layer moves dp, tp or cp bytes, and under pp each layer's entry holds
+    JAX's pipeline term, the activation and its cotangent of every
+    microbatch (``pp_p2p_mb``). Plans with stages wider than one rank are
     not ported."""
-    del model, mixed_precision
-    if hpc.world_size != 1 or hpc.pp_deg != 1:
+    if hpc.world_size != hpc.pp_deg or any(
+            max(s.tp_size, s.cp_size, s.dp_size) > 1 or s.sp
+            for s in hpc.layers):
         raise NotImplementedError(
             "the plan's predicted collective volume (plan_comm_volume) of a "
-            "plan wider than one device is not ported yet")
+            "plan whose stages are wider than one rank is not ported yet")
+    chunks = max(hpc.chunks, 1)
+    pp_mb = 0.0
+    if hpc.pp_deg > 1:
+        elem = 2 if mixed_precision else 4
+        lbsz = max(hpc.global_bsz // chunks, 1)
+        pp_mb = (2 * lbsz * model.seq_length * model.hidden_size * elem / MB
+                 * chunks)
+    per_layer = {"pp_p2p_mb": pp_mb, "total_mb": pp_mb} if pp_mb else {}
     registry.event("plan", {
         "global_bsz": hpc.global_bsz, "chunks": hpc.chunks,
-        "pp_deg": hpc.pp_deg, "predicted_comm_mb_per_step": 0.0,
-        "layers": [{"layer": i} for i in range(len(hpc.checkpoint_flags))],
+        "pp_deg": hpc.pp_deg,
+        "predicted_comm_mb_per_step": pp_mb * len(hpc.layers),
+        "layers": [{"layer": i, **per_layer}
+                   for i in range(len(hpc.layers))],
     })

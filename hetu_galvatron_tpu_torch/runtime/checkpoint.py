@@ -21,8 +21,17 @@ The payload format is the port's own (the JAX package writes orbax):
   ``count``, the ``adam`` / ``sgd`` leaf-index lists, and ``mu.<name>`` /
   ``nu.<name>`` tensors for each Adam leaf (a plain tree of tensors, as
   the JAX tests pass, is saved by leaf name the same way);
+* the pipeline engine's state (``runtime/pipeline.py``) is saved in its
+  stage layout, as JAX's ``save_checkpoint(..., sp, so, hpc=hpc)``
+  (``cli/train_dist.py:736-737``): the list of stage parameter trees
+  (names ``<s>.<leaf>``, the tied copy ``<last>.head.whead`` among them)
+  and the list of stage AdamW states (``<s>.count``, ``<s>.mu.<leaf>``,
+  ...);
 * ``meta.json``: the JAX keys ``step``, ``hybrid_parallel_config`` (the
-  plan fingerprint, with ``world_size``) and ``train_state`` (``step``,
+  plan fingerprint with ``pp_division``, ``vpp_deg`` above 1 and
+  ``world_size``; a checkpoint of another stage layout raises
+  :class:`PlanMismatchError` whether or not the plan is checked
+  strictly, one of another world :class:`WorldSizeMismatchError`) and ``train_state`` (``step``,
   ``seed``, ``telemetry_step``, ``batches_consumed``,
   ``consumed_samples``, ``rerun``; the JAX goodput totals belong to the
   observability slice).
@@ -149,16 +158,26 @@ class WorldSizeMismatchError(ValueError):
 
 def _plan_fingerprint(hpc) -> Dict[str, Any]:
     """The JAX package's plan fingerprint: ``strategy_list2config`` of the
-    per-layer and vocab strategies, plus ``world_size``."""
+    per-layer and vocab strategies with ``pp_division`` (``pp_deg`` and
+    ``pipeline_type`` ride in it), plus ``world_size``; ``vpp_deg`` joins
+    when above 1."""
     from hetu_galvatron_tpu_torch.utils.strategy import strategy_list2config
 
     cfg = strategy_list2config(
         hpc.layers, global_bsz=hpc.global_bsz, chunks=hpc.chunks,
         pipeline_type=hpc.pipeline_type,
         default_dp_type=hpc.default_dp_type, vocab=hpc.vocab,
-        num_encoder_layers=hpc.num_encoder_layers or None)
+        pp_division=hpc.pp_division or None,
+        num_encoder_layers=hpc.num_encoder_layers or None,
+        vpp_deg=hpc.vpp_deg)
     cfg["world_size"] = hpc.world_size
     return cfg
+
+
+def _layout(plan: Dict[str, Any]) -> Tuple:
+    """What fixes the stage layout a checkpoint's leaves are named by."""
+    return (int(plan.get("pp_deg", 1)), plan.get("pp_division"),
+            int(plan.get("vpp_deg", 1)))
 
 
 class PlanMismatchError(ValueError):
@@ -200,15 +219,30 @@ def _params_payload(params: Params) -> Dict[str, torch.Tensor]:
     return {n: _host(t) for n, t in named_leaves(params)}
 
 
-def _opt_payload(opt_state: Any, names: List[str]) -> Dict[str, Any]:
-    if not isinstance(opt_state, AdamState):
+def _adam_states(opt_state: Any, params: Params
+                 ) -> List[Tuple[str, AdamState, List[str]]]:
+    """(key prefix, state, leaf names) for each AdamW state: one for a
+    model, one per stage for the pipeline engine's lists (``"<s>."``)."""
+    if isinstance(opt_state, AdamState):
+        return [("", opt_state, _leaf_names(params))]
+    if (isinstance(opt_state, (list, tuple)) and opt_state
+            and all(isinstance(o, AdamState) for o in opt_state)):
+        return [(f"{s}.", o, _leaf_names(p))
+                for s, (o, p) in enumerate(zip(opt_state, params))]
+    return []
+
+
+def _opt_payload(opt_state: Any, params: Params) -> Dict[str, Any]:
+    states = _adam_states(opt_state, params)
+    if not states:
         return {n: _host(t) for n, t in named_leaves(opt_state)}
-    out: Dict[str, Any] = {"count": int(opt_state.count),
-                           "adam": list(opt_state.adam),
-                           "sgd": list(opt_state.sgd)}
-    for j, i in enumerate(opt_state.adam):
-        out[f"mu.{names[i]}"] = _host(opt_state.mu[j])
-        out[f"nu.{names[i]}"] = _host(opt_state.nu[j])
+    out: Dict[str, Any] = {}
+    for pre, st, names in states:
+        out.update({f"{pre}count": int(st.count), f"{pre}adam": list(st.adam),
+                    f"{pre}sgd": list(st.sgd)})
+        for j, i in enumerate(st.adam):
+            out[f"{pre}mu.{names[i]}"] = _host(st.mu[j])
+            out[f"{pre}nu.{names[i]}"] = _host(st.nu[j])
     return out
 
 
@@ -238,13 +272,17 @@ def _pairs(payload: Dict[str, Any], leaves: List[Tuple[str, torch.Tensor]],
     return out
 
 
-def _opt_leaves(target: Any, names: List[str]
+def _opt_leaves(target: Any, params: Params
                 ) -> List[Tuple[str, torch.Tensor]]:
-    if not isinstance(target, AdamState):
+    states = _adam_states(target, params)
+    if not states:
         return list(named_leaves(target))
-    return ([(f"mu.{names[i]}", t) for i, t in zip(target.adam, target.mu)]
-            + [(f"nu.{names[i]}", t) for i, t in zip(target.adam,
-                                                      target.nu)])
+    out = []
+    for pre, st, names in states:
+        out += ([(f"{pre}mu.{names[i]}", t) for i, t in zip(st.adam, st.mu)]
+                + [(f"{pre}nu.{names[i]}", t) for i, t in zip(st.adam,
+                                                               st.nu)])
+    return out
 
 
 def _write_torch(path: str, obj: Any) -> int:
@@ -371,11 +409,10 @@ def save_checkpoint(
         # stale staging dir from a crashed earlier attempt at this step
         shutil.rmtree(tmp_dir)
     os.makedirs(tmp_dir, exist_ok=True)
-    names = _leaf_names(params)
     parts: List[Tuple[str, Callable[[], Dict[str, Any]]]] = [
         (PARAMS_FILE, lambda: _params_payload(params))]
     if opt_state is not None:
-        parts.append((OPT_FILE, lambda: _opt_payload(opt_state, names)))
+        parts.append((OPT_FILE, lambda: _opt_payload(opt_state, params)))
     if async_save:
         # the host copy is taken now; a synchronous save copies one file's
         # worth at a time, so the host holds at most the larger file
@@ -662,10 +699,13 @@ def load_checkpoint(
         if sw is not None and int(sw) != int(expected_world):
             raise WorldSizeMismatchError(ckpt_dir, int(sw),
                                          int(expected_world), stored_plan)
-    if strict_plan and hpc is not None:
+    if hpc is not None:
         stored = meta.get("hybrid_parallel_config")
         current = _plan_fingerprint(hpc)
-        if stored != current:
+        # another stage layout names other leaves: no restore can take
+        # it, strict or not (re-laying it out is the reshard's work)
+        if stored != current and (strict_plan or (
+                stored is not None and _layout(stored) != _layout(current))):
             raise PlanMismatchError(
                 f"checkpoint plan mismatch:\nstored  {stored}\n"
                 f"current {current}")
@@ -676,7 +716,6 @@ def load_checkpoint(
             f"{ckpt_dir} holds an orbax checkpoint of the JAX package; "
             "restore it there and cross it over with params_from_jax / "
             "opt_state_from_jax")
-    names = _leaf_names(params_target)
     payload = _read_torch(ppath)
     pairs = _pairs(payload, list(named_leaves(params_target)), PARAMS_FILE)
     opath = os.path.join(ckpt_dir, OPT_FILE)
@@ -684,20 +723,21 @@ def load_checkpoint(
     if opt_target is not None and os.path.exists(opath):
         opt_payload = _read_torch(opath)
         opt_read = True
-        if isinstance(opt_target, AdamState) and (
-                list(opt_payload.get("adam", ())) != list(opt_target.adam)
-                or list(opt_payload.get("sgd", ())) != list(opt_target.sgd)):
-            raise ValueError(f"{OPT_FILE}: the stored adam/sgd leaf "
-                             "partition differs from the model's")
-        pairs += _pairs(opt_payload, _opt_leaves(opt_target, names),
+        for pre, st, _ in _adam_states(opt_target, params_target):
+            if (list(opt_payload.get(f"{pre}adam", ())) != list(st.adam)
+                    or list(opt_payload.get(f"{pre}sgd", ()))
+                    != list(st.sgd)):
+                raise ValueError(f"{OPT_FILE}: the stored adam/sgd leaf "
+                                 "partition differs from the model's")
+        pairs += _pairs(opt_payload, _opt_leaves(opt_target, params_target),
                         OPT_FILE)
         opt_state = opt_target
     # every leaf checked above; only now touch the targets
     with torch.no_grad():
         for t, src in pairs:
             t.copy_(src)
-    if isinstance(opt_state, AdamState):
-        opt_state.count = int(opt_payload["count"])
+    for pre, st, _ in _adam_states(opt_state, params_target):
+        st.count = int(opt_payload[f"{pre}count"])
     nbytes = os.path.getsize(ppath) + (
         os.path.getsize(opath) if opt_read else 0)
     _gauge("load_ms", (time.perf_counter() - t0) * 1e3)

@@ -1,25 +1,30 @@
-"""Hybrid-parallel plan: GLOBAL mode and searched JSON plans on one device.
+"""Hybrid-parallel plan: GLOBAL mode and searched JSON plans whose stages
+each run one rank.
 
-Counterpart of ``hetu_galvatron_tpu/runtime/hybrid_config.py`` for the
-plans one device runs: no pipeline, no tensor, context, sequence or expert
-parallelism, with per-layer activation checkpointing. GLOBAL mode sets
-``parallel.global_checkpoint`` on every layer. JSON mode
+Counterpart of ``hetu_galvatron_tpu/runtime/hybrid_config.py``
+(``get_hybrid_parallel_config`` :119-230) for the plans the port runs:
+pp=1 on one device, and pipelines of ``pp_deg`` stages (``pp_deg x
+vpp_deg`` chunks under interleaving) at a world of ``pp_deg``, one rank a
+stage (``runtime/pipeline.py``). GLOBAL mode takes ``parallel.pp_deg``,
+``pipeline_type``, ``virtual_pp_deg``, ``chunks`` and
+``parallel.global_checkpoint`` on every layer; the division is
+``utils/strategy.default_pp_division`` over the chunks. JSON mode
 (``parallel.config_mode=json`` or ``parallel.galvatron_config_path``)
 reads a searched ``galvatron_config_*.json`` through
-``utils/strategy.config2strategy``: ``global_bsz`` and ``chunks`` come
-from the plan (JAX :131-160), ``checkpoint_flags`` is its per-layer
+``utils/strategy.config2strategy``: ``global_bsz``, ``chunks``,
+``pp_deg``, ``pp_division``, ``vpp_deg`` and ``pipeline_type`` come from
+the plan (JAX :131-160), ``checkpoint_flags`` is its per-layer
 ``checkpoint`` vector, and its ``predicted_time_cost_ms`` rides along for
 the launcher's log. ``dp_type`` zero2 or zero3 at dp 1 is plain data
 parallelism and runs. For t5 the flags span the combined stack, encoder
 layers first (``num_encoder_layers``, ``enc_flags`` / ``dec_flags``), as
-the JAX plan's ``layers`` do.
+the JAX plan's ``layers`` do; the pipeline slices that stack the same way.
 
-Anything wider raises ``NotImplementedError`` naming the setting: a world
-above 1, GLOBAL-mode pp / tp / cp / ep / virtual pp degrees, ulysses or
-sdp, and a plan with pp, tp, cp, sp or ep above 1 on a layer, vocab
-tp / sp / cp above 1, virtual stages, or the hierarchical dp reduction
-(the SPMD plans on NCCL and the pipeline engines, ROADMAP items 10 and
-12).
+What a stage of one rank cannot run raises ``NotImplementedError`` naming
+the setting and its ROADMAP item: tp, cp, sp, ep or etp above 1 on a
+layer (GLOBAL-mode tp / cp / ep degrees, ulysses, sdp), vocab tp / sp /
+cp, the hierarchical dp reduction, and any world other than ``pp_deg``
+(the SPMD plans on NCCL, item 10; ``hier_dp``, items 12 and 14).
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ from hetu_galvatron_tpu_torch.utils.strategy import (
     print_strategies,
 )
 
-LATER = "is not ported yet (a later slice: SPMD plans on NCCL / pipeline)"
 ITEM10 = ("needs several devices: the SPMD plans on NCCL are not ported "
           "yet (ROADMAP item 10)")
 
@@ -51,11 +55,14 @@ class HybridParallelConfig:
     chunks: int
     global_bsz: int
     world_size: int
-    # the per-layer strategies (one device each); t5: encoder + decoder
+    # the per-layer strategies (one rank each); t5: encoder + decoder
     # layers, and the split point
     layers: List[LayerStrategy]
     num_encoder_layers: int = 0
     pipeline_type: str = "gpipe"
+    # layers per chunk, pp_deg * vpp_deg entries (chunk c on stage c % pp)
+    pp_division: List[int] = field(default_factory=list)
+    vpp_deg: int = 1
     default_dp_type: str = "ddp"
     vocab: EmbeddingLMHeadStrategy = field(
         default_factory=EmbeddingLMHeadStrategy)
@@ -79,7 +86,13 @@ class HybridParallelConfig:
     def describe(self) -> str:
         text = (f"pp{self.pp_deg} chunks{self.chunks} bsz{self.global_bsz} "
                 f"world{self.world_size} remat {sum(self.checkpoint_flags)}/"
-                f"{len(self.checkpoint_flags)} layers (single device)")
+                f"{len(self.checkpoint_flags)} layers ")
+        if self.pp_deg > 1:
+            text += (f"({self.pipeline_type}, division {self.pp_division}"
+                     + (f", vpp{self.vpp_deg}" if self.vpp_deg > 1 else "")
+                     + ", one rank a stage)")
+        else:
+            text += "(single device)"
         if self.plan_path:
             text += (f" [{print_strategies(self.layers)}] searched plan "
                      f"{self.plan_path}")
@@ -110,34 +123,57 @@ def uses_json_plan(args: CoreArgs) -> bool:
         None, "", "None")
 
 
-def check_single_device(args: CoreArgs, world_size: int) -> None:
-    """Raise, naming the setting, for a GLOBAL-mode plan wider than one
-    device (JSON plans: :func:`check_plan_width`)."""
+def plan_pp_deg(args: CoreArgs) -> int:
+    """The plan's ``pp_deg``: GLOBAL mode's ``parallel.pp_deg`` or the
+    JSON plan's (1 for a JSON plan without a path, which
+    :func:`get_hybrid_parallel_config` refuses)."""
     par = args.parallel
-    if world_size > 1:
-        raise NotImplementedError(f"world size {world_size} > 1 {LATER}")
+    if not uses_json_plan(args):
+        return par.pp_deg
+    if par.galvatron_config_path in (None, "", "None"):
+        return 1
+    return int(load_strategy_config(par.galvatron_config_path).get(
+        "pp_deg", 1))
+
+
+def check_world(world_size: int, pp_deg: int, where: str = "",
+                pp_name: str = "pp_deg") -> None:
+    """Raise unless the world equals ``pp_deg`` (named ``pp_name``): every
+    pipeline stage here runs on one rank, and pp=1 on one device."""
+    if world_size != pp_deg:
+        raise NotImplementedError(
+            f"{where}world size {world_size} with {pp_name}={pp_deg}: the "
+            "port runs each pipeline stage on one rank, so the world "
+            "(parallel.num_devices, else the visible devices under pp) "
+            "must equal "
+            f"pp_deg; a stage of more than one rank {ITEM10}")
+
+
+def check_single_device(args: CoreArgs, world_size: int) -> None:
+    """Raise, naming the setting, for a GLOBAL-mode plan whose stages would
+    be wider than one rank (JSON plans: :func:`check_plan_width`)."""
+    par = args.parallel
     if uses_json_plan(args):
         return  # JSON mode ignores the GLOBAL degrees, as JAX's does
-    wide = {"pp_deg": par.pp_deg, "global_tp_deg": par.global_tp_deg,
+    wide = {"global_tp_deg": par.global_tp_deg,
             "global_cp_deg": par.global_cp_deg,
-            "global_ep_deg": par.global_ep_deg,
-            "virtual_pp_deg": par.virtual_pp_deg}
+            "global_ep_deg": par.global_ep_deg}
     for name, deg in wide.items():
         if deg > 1:
-            raise NotImplementedError(f"parallel.{name}={deg} {LATER}")
+            raise NotImplementedError(f"parallel.{name}={deg} {ITEM10}")
     if par.use_ulysses or par.sdp:
-        raise NotImplementedError(f"ulysses / sdp (ZeRO-3) {LATER}")
+        raise NotImplementedError(f"ulysses / sdp (ZeRO-3) {ITEM10}")
+    check_world(world_size, par.pp_deg, pp_name="parallel.pp_deg")
 
 
 def check_plan_width(path: str, layers: List[LayerStrategy], vocab,
-                     extras) -> None:
-    """Raise for the first field of a searched plan that needs more than
-    one device, naming it (and the layer)."""
+                     extras, world_size: Optional[int] = None) -> None:
+    """Raise for the first field of a searched plan that a stage of one
+    rank cannot run, naming it (and the layer); with ``world_size``, also
+    for a world other than the plan's ``pp_deg``."""
     def refuse(what: str):
         raise NotImplementedError(f"plan {path}: {what} {ITEM10}")
 
-    if layers[0].pp_deg > 1:
-        refuse(f"pp_deg={layers[0].pp_deg}")
     for i, s in enumerate(layers):
         for key, value in (("tp_sizes_enc", s.tp_size),
                            ("cp_sizes_enc", s.cp_size),
@@ -150,15 +186,12 @@ def check_plan_width(path: str, layers: List[LayerStrategy], vocab,
                        ("vcp", vocab.vcp)):
         if value > (0 if key == "vsp" else 1):
             refuse(f"{key}={value}")
-    if extras["vpp_deg"] > 1:
-        raise NotImplementedError(
-            f"plan {path}: vpp_deg={extras['vpp_deg']} (virtual pipeline "
-            "stages) needs the pipeline engines, which are not ported yet "
-            "(ROADMAP item 12)")
     if extras["hier_dp"]:
         raise NotImplementedError(
             f"plan {path}: hier_dp=1 (the hierarchical dp reduction) is not "
             "ported yet (ROADMAP items 12 and 14)")
+    if world_size is not None:
+        check_world(world_size, layers[0].pp_deg, where=f"plan {path}: ")
 
 
 def _json_plan(args: CoreArgs, world_size: int, n_enc: int,
@@ -169,8 +202,8 @@ def _json_plan(args: CoreArgs, world_size: int, n_enc: int,
         raise PlanFormatError("parallel.config_mode=json needs "
                               "parallel.galvatron_config_path")
     cfg = load_strategy_config(path)
-    # the plan's widths first, then the plan at this world size
-    check_plan_width(path, *config2strategy(cfg))
+    # the plan's widths and world first, then the plan at this world size
+    check_plan_width(path, *config2strategy(cfg), world_size=world_size)
     layers, vocab, extras = config2strategy(cfg, world_size=world_size)
     if len(layers) != n_layers:
         raise ValueError(
@@ -180,19 +213,23 @@ def _json_plan(args: CoreArgs, world_size: int, n_enc: int,
         raise ValueError(
             f"plan was searched for {extras['num_encoder_layers']} encoder "
             f"layers, model has {n_enc}")
+    pp_deg = layers[0].pp_deg
+    vpp = max(extras["vpp_deg"], 1)
     global_bsz = extras["global_bsz"] or par.global_train_batch_size
-    chunks = resolve_chunks(extras["chunks"], 1, global_bsz, world_size)
-    pp_division = extras["pp_division"] or default_pp_division(n_layers, 1)
+    chunks = resolve_chunks(extras["chunks"], pp_deg, global_bsz, world_size)
+    pp_division = extras["pp_division"] or default_pp_division(
+        n_layers, pp_deg * vpp)
     for reason in eligibility.plan_structure_reasons(
-            layers=layers, vocab=vocab, pp_deg=1, vpp_deg=1,
+            layers=layers, vocab=vocab, pp_deg=pp_deg, vpp_deg=vpp,
             pp_division=pp_division, n_layers=n_layers,
             world_size=world_size, global_bsz=global_bsz):
         raise ValueError(reason)
     predicted = cfg.get("predicted_time_cost_ms")
     return HybridParallelConfig(
-        pp_deg=1, chunks=chunks, global_bsz=global_bsz,
+        pp_deg=pp_deg, chunks=chunks, global_bsz=global_bsz,
         world_size=world_size, layers=list(layers),
         num_encoder_layers=n_enc, pipeline_type=extras["pipeline_type"],
+        pp_division=list(pp_division), vpp_deg=vpp,
         default_dp_type=extras["default_dp_type"], vocab=vocab,
         plan_path=path,
         predicted_time_cost_ms=None if predicted is None else float(
@@ -212,11 +249,23 @@ def get_hybrid_parallel_config(args: CoreArgs,
     if uses_json_plan(args):
         hpc = _json_plan(args, world_size, n_enc, n_layers)
     else:
+        pp_deg, vpp = par.pp_deg, max(par.virtual_pp_deg, 1)
+        layers = [LayerStrategy(pp_deg=pp_deg,
+                                checkpoint=bool(par.global_checkpoint))
+                  ] * n_layers
+        pp_division = default_pp_division(n_layers, pp_deg * vpp)
+        for reason in eligibility.plan_structure_reasons(
+                layers=layers, vocab=EmbeddingLMHeadStrategy(),
+                pp_deg=pp_deg, vpp_deg=vpp, pp_division=pp_division,
+                n_layers=n_layers, world_size=world_size,
+                global_bsz=par.global_train_batch_size):
+            raise ValueError(reason)
         hpc = HybridParallelConfig(
-            pp_deg=1, chunks=get_chunks(args, world_size),
+            pp_deg=pp_deg, chunks=get_chunks(args, world_size),
             global_bsz=par.global_train_batch_size, world_size=world_size,
-            layers=[LayerStrategy(checkpoint=bool(par.global_checkpoint))]
-            * n_layers, num_encoder_layers=n_enc)
+            layers=layers, num_encoder_layers=n_enc,
+            pipeline_type=par.pipeline_type, pp_division=pp_division,
+            vpp_deg=vpp)
     if hpc.global_bsz % hpc.chunks:
         raise ValueError(
             f"global batch {hpc.global_bsz} is not divisible by "

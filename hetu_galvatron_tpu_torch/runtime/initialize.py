@@ -1,31 +1,47 @@
-"""Run initialization: argument checks, seeding, device choice, logger.
+"""Run initialization: argument checks, seeding, devices, logger.
 
-Counterpart of ``hetu_galvatron_tpu/runtime/initialize.py`` for one process
-on one device. The device is ``args.device``: "cuda" (the default) needs a
-GPU and raises without one; "cpu" runs the plain versions of the kernels
-and is what the tests ask for.
+Counterpart of ``hetu_galvatron_tpu/runtime/initialize.py`` (``RunState``
+and ``initialize`` :169-182) for one process. ``args.device`` picks the
+kind: "cuda" (the default) needs a GPU and raises without one; "cpu" runs
+the plain versions of the kernels and is what the tests ask for.
+
+The world is ``parallel.num_devices`` when above 0; else, for a plan
+with ``pp_deg > 1``, the number of visible devices (the CPU counts as
+one), and 1 for a pp=1 plan, which runs on one device however many are
+visible. ``RunState.devices`` lists a device per rank: rank r runs on
+``visible[r % len(visible)]``, so a world larger than the visible
+devices puts several ranks on one device, and the run logs one line
+saying so. JAX clamps the world to the devices it sees instead; PyTorch
+has no virtual devices, and a pipeline stage of one rank computes the
+same arithmetic wherever it runs. Only a world equal to the plan's
+``pp_deg`` runs (``hybrid_config.check_world``): pp=1 on one
+device, or one rank a pipeline stage.
 """
 
 from __future__ import annotations
 
 import logging
 import random
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from hetu_galvatron_tpu_torch.core.args_schema import CoreArgs
-from hetu_galvatron_tpu_torch.runtime.hybrid_config import check_single_device
+from hetu_galvatron_tpu_torch.runtime.hybrid_config import (
+    check_single_device,
+    plan_pp_deg,
+)
 
 
 @dataclass
 class RunState:
     args: CoreArgs
-    device: torch.device
+    device: torch.device  # rank 0's
     world_size: int = 1
     logger: Optional[logging.Logger] = None
+    devices: List[torch.device] = field(default_factory=list)  # per rank
 
     def log(self, msg: str) -> None:
         (self.logger.info if self.logger else print)(msg)
@@ -63,6 +79,16 @@ def resolve_device(args: CoreArgs) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def visible_devices(args: CoreArgs) -> List[torch.device]:
+    """The devices a run may use, the current CUDA device first; the CPU
+    alone with ``device=cpu``."""
+    first = resolve_device(args)
+    if first.type == "cpu":
+        return [first]
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", (first.index + i) % n) for i in range(n)]
+
+
 def make_logger(args: CoreArgs) -> logging.Logger:
     logger = logging.getLogger("hetu_galvatron_tpu_torch")
     logger.propagate = False
@@ -76,26 +102,31 @@ def make_logger(args: CoreArgs) -> logging.Logger:
 
 
 def initialize(args: CoreArgs) -> RunState:
-    """Validate, seed and pick the device (single process)."""
+    """Validate, seed and lay the ranks out on the visible devices (single
+    process)."""
     if args.parallel.num_processes > 1:
         raise NotImplementedError(
             "multi-process runs (parallel.num_processes > 1) are not ported "
             "yet")
-    device = resolve_device(args)
-    world = 1
-    if args.parallel.num_devices > 1:
-        raise NotImplementedError(
-            f"parallel.num_devices={args.parallel.num_devices}: runs on more "
-            "than one device are not ported yet")
+    visible = visible_devices(args)
+    world = args.parallel.num_devices
+    if world <= 0:
+        world = len(visible) if plan_pp_deg(args) > 1 else 1
     # the plan's refusals name the setting; run them before the generic
     # divisibility checks
     check_single_device(args, world)
     validate_args(args, world)
     set_seed(args.train.seed)
     logger = make_logger(args)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+    devices = [visible[r % len(visible)] for r in range(world)]
+    first = devices[0]
+    name = (torch.cuda.get_device_name(first) if first.type == "cuda"
             else "cpu")
-    logger.info("initialized: 1 device (%s), model %s", name,
-                args.model.model_name)
-    return RunState(args=args, device=device, world_size=world,
-                    logger=logger)
+    logger.info("initialized: %d rank(s) on %d device(s) (%s), model %s",
+                world, len(set(devices)), name, args.model.model_name)
+    if world > len(visible):
+        logger.info("%d ranks share %d device(s) (%s): the pipeline stages "
+                    "on one device run one after another", world,
+                    len(visible), ", ".join(str(d) for d in visible))
+    return RunState(args=args, device=first, world_size=world,
+                    logger=logger, devices=devices)

@@ -18,6 +18,11 @@ minus the router's balancing update (``models/moe.py``). The clip then
 divides by the global norm of the Adam leaves only, as optax's clip inside
 the partition does.
 
+``make_pipeline_optimizer`` is the chain without step 1, JAX
+``runtime/pipeline.py::_pipeline_optimizer`` :72: the pipeline engine
+clips across all its stages, multiplying the gradients by the global
+scale itself before each stage's update (``runtime/pipeline.py``).
+
 Parameters are updated in place (``torch._foreach_*`` over the leaves),
 where the JAX package returns new arrays, in groups of leaves of at most
 ``GROUP_BYTES`` of fp32 (a larger leaf forms its own group): the update's
@@ -204,3 +209,11 @@ class AdamW:
 
 def make_optimizer(train: TrainArgs) -> AdamW:
     return AdamW(train)
+
+
+def make_pipeline_optimizer(train: TrainArgs) -> AdamW:
+    """AdamW with weight decay and the LR schedule and no clip: the
+    pipeline engine's per-stage update (expert biases still take SGD)."""
+    tx = AdamW(train)
+    tx.clip = 0.0
+    return tx

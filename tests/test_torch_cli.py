@@ -93,7 +93,8 @@ def test_torch_train_dist_refuses_flags_outside_the_slice(flag):
     with pytest.raises(NotImplementedError) as err:
         train_dist.main([GPT2, *TINY, flag, *extra])
     # a trace window with the plan audit on (its default) names the audit
-    key = {"parallel.config_mode": "pp_deg=2", "parallel.sdp": "sdp",
+    # (the plan is pp=2 with tp=2: its stages would be wider than one rank)
+    key = {"parallel.config_mode": "tp_sizes_enc", "parallel.sdp": "sdp",
            "parallel.num_processes": "num_processes",
            "profile.trace_dir": "observability.audit"}.get(name, name)
     assert key in str(err.value)

@@ -38,6 +38,7 @@ LIFECYCLE = (
     "hetu_galvatron_tpu_torch.observability.tracing",
     "hetu_galvatron_tpu_torch.observability.telemetry",
     "hetu_galvatron_tpu_torch.observability.trace_analysis",
+    "hetu_galvatron_tpu_torch.runtime.pipeline",
 )
 # the modules of the profile -> search -> train loop; the search side (all
 # but the model profiler and the profiler launcher) imports no torch

@@ -591,3 +591,34 @@ def test_torch_jax_summarize_reads_the_port_stream(tmp_path, capsys):
                  "train/step", "checkpoint/saved"):
         assert line in text
     assert TSUM.main([]) == 2 and TSUM.main(["--timeline"]) == 2
+
+
+@pytest.mark.parametrize("over", [
+    ["parallel.pp_deg=2", "parallel.num_devices=2", "parallel.chunks=2"],
+    ["parallel.pp_deg=2", "parallel.num_devices=2", "parallel.chunks=4",
+     "parallel.virtual_pp_deg=2", "parallel.mixed_precision=fp32"]])
+def test_torch_plan_event_matches_jax_for_pp_plans(over):
+    """Under pp at one rank a stage, each layer carries JAX's pipeline
+    term (the activation and its cotangent of every microbatch)."""
+    from hetu_galvatron_tpu.runtime import hybrid_config as JH
+    from hetu_galvatron_tpu_torch.runtime import hybrid_config as TH
+
+    over = [a for a in TINY if a != "device=cpu"] + [
+        "model.num_hidden_layers=4"] + over
+    events = []
+    for T, G, H, args in (
+            (JT, JG, JH, JA.load_config(GPT2, over)),
+            (TT, TG, TH, load_config(GPT2, ["device=cpu", *over]))):
+        seen = []
+
+        class Sink:
+            write, flush, close = seen.append, (lambda: 0), (lambda: 0)
+
+        hpc = H.get_hybrid_parallel_config(args, 2)
+        T.emit_plan_telemetry(G.MetricsRegistry([Sink()]), hpc, args.model,
+                              mixed_precision=(
+                                  args.parallel.mixed_precision != "fp32"))
+        events.append([{k: v for k, v in r.items() if k != "t"}
+                       for r in seen])
+    assert events[1] == events[0]
+    assert events[1][0]["data"]["predicted_comm_mb_per_step"] > 0

@@ -205,9 +205,10 @@ def test_torch_plan_reports_match_jax(case):
 
 
 def test_torch_refusal_warning_names_the_field_and_item(tmp_path):
+    # pp=2 with tp=2: the stages would be wider than one rank
     ours, refusal = both(good_plan(), 8)
-    assert ours.ok and "pp_deg=2" in refusal and "ROADMAP item 10" in \
-        refusal
+    assert ours.ok and "tp_sizes_enc: layer 0 has 2" in refusal and \
+        "ROADMAP item 10" in refusal
     _, refusal = both(one_device(global_bsz=16), 8)
     assert "world size 8" in refusal and "ROADMAP item 10" in refusal
     _, refusal = both(one_device(hier_dp=1), 1)
@@ -216,7 +217,22 @@ def test_torch_refusal_warning_names_the_field_and_item(tmp_path):
     p.write_text(json.dumps(good_plan()))
     _, refusal = both(str(p), 8)
     assert refusal.startswith(f"the port's runtime refuses this plan "
-                              f"today: plan {p}: pp_deg=2")
+                              f"today: plan {p}: tp_sizes_enc")
+
+
+@pytest.mark.parametrize("plan", [
+    one_device(pp_deg=2, pp_division="2,2"),
+    one_device(pp_deg=2, pp_division="1,3", pipeline_type="gpipe"),
+    one_device(pp_deg=2, pp_division="1,1,1,1", vpp_deg=2),
+    one_device(pp_deg=4, pp_division="1,1,1,1", global_bsz=4, chunks=4)])
+def test_torch_pipeline_plans_of_one_rank_a_stage_get_no_warning(plan):
+    """The port runs a pp plan whose stages are one rank each at a world
+    of pp_deg (``runtime/pipeline.py``); at any other world it warns."""
+    ours, refusal = both(plan, plan["pp_deg"])
+    assert ours.ok and refusal is None
+    _, refusal = both(plan, 2 * plan["pp_deg"])
+    assert f"world size {2 * plan['pp_deg']} with pp_deg=" in refusal and \
+        "ROADMAP item 10" in refusal
 
 
 OVERLAP_CASES = [dict(ulysses=u, has_cp=c, tp=t, seq_len=s)

@@ -10,6 +10,7 @@ needs more than one device, by name."""
 
 import glob
 import json
+import logging
 import os
 
 import pytest
@@ -93,12 +94,25 @@ def test_torch_profile_search_train_loop_on_the_cpu(tmp_path, capsys):
     args = load_config(GPT2, MODEL + TRAIN + [
         "parallel.config_mode=json", f"parallel.galvatron_config_path={plan}",
         "profile.profile=1", "profile.profile_warmup=1"])
-    out = train_dist.train(args)
+    # the launcher's log lines, read from its logger: its stderr handler
+    # keeps the stream of the first run in the process
+    lines = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger, handler = logging.getLogger("hetu_galvatron_tpu_torch"), Lines()
+    logger.addHandler(handler)
+    try:
+        out = train_dist.train(args)
+    finally:
+        logger.removeHandler(handler)
     assert len(out["losses"]) == 3
     assert all(torch.isfinite(torch.tensor(out["losses"])))
     assert out["batch_sizes"] == [cfg["global_bsz"]] * 3
     assert out["predicted_time_cost_ms"] == cfg["predicted_time_cost_ms"]
-    log = "".join(capsys.readouterr())  # the launcher logs to stderr
+    log = "\n".join(lines)
     assert "searched plan: predicted step" in log and "measured" in log
     assert f"searched plan {plan}" in log
     # below the context reserve no plan fits: exit 1
@@ -169,19 +183,24 @@ def test_torch_json_plan_with_equal_flags_trains_as_global_mode(tmp_path):
 
 
 WIDE = [
-    ("acceptance_tp2dp2pp2", "pp_deg=2"),
+    # a pipeline runs one rank a stage, at a world of pp_deg: at world 1
+    # a pp=2 plan, interleaved or not, is refused by its world
+    (dict(pp_deg=2, pp_division="1,1"), "world size 1 with pp_deg=2"),
     ("spmd_tp2zero3", "tp_sizes_enc: layer 0 has 2"),
     (dict(cp_sizes_enc="1,2"), "cp_sizes_enc: layer 1 has 2"),
     (dict(use_sp="0,1"), "use_sp: layer 1 has 1"),
     (dict(ep_sizes_enc="2,1"), "ep_sizes_enc: layer 0 has 2"),
     (dict(tp_of_ep_sizes_enc="1,2"), "tp_of_ep_sizes_enc: layer 1 has 2"),
     (dict(vtp=2), "vtp=2"), (dict(vsp=1), "vsp=1"), (dict(vcp=2), "vcp=2"),
-    (dict(vpp_deg=2), "vpp_deg=2"), (dict(hier_dp=1), "hier_dp=1"),
+    (dict(pp_deg=2, vpp_deg=2, pp_division="1,1,1,1"),
+     "world size 1 with pp_deg=2"), (dict(hier_dp=1), "hier_dp=1"),
 ]
+WIDE_IDS = ["pp_deg=2", "tp_sizes_enc", "cp_sizes_enc", "use_sp",
+            "ep_sizes_enc", "tp_of_ep_sizes_enc", "vtp=2", "vsp=1", "vcp=2",
+            "vpp_deg=2", "hier_dp=1"]
 
 
-@pytest.mark.parametrize("plan,field", WIDE, ids=[w[1].split(":")[0]
-                                                  for w in WIDE])
+@pytest.mark.parametrize("plan,field", WIDE, ids=WIDE_IDS)
 def test_torch_plans_wider_than_one_device_are_refused(plan, field,
                                                        tmp_path):
     if isinstance(plan, str):
