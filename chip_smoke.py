@@ -237,14 +237,44 @@ each of which ends the run with a non-zero exit when it fails:
     JAX's does. Each run also prints the stage spans' host ms a
     microbatch. ``python3 chip_smoke.py --pipe-only`` runs phases 1, 2
     and 16.
+17. main path of slice 13, the compiled 1F1B pipeline
+    (``runtime/compiled_pipeline.py``) through ``train`` with
+    ``pipeline.schedule_impl=compiled``, every stage lane on this card,
+    each step one replay of a captured CUDA graph; first K1-K3 against
+    their plain versions at its folded shapes (GPT-2 B=8, Qwen B=2
+    unpacked). (a) GPT-2 small uncut, pp 4 1F1B [3, 3, 3, 3], batch 8 in 4
+    microbatches, 6 steps, observability on and the replays of steps 2-3
+    traced, against 4 steps of the host engine 1F1B and a pp=1 run of the same
+    weights, batches and chunks: step-0 loss and grad norm and the losses
+    of steps 1-3 within 1e-4 relative of each, one capture, exact
+    launches, the traced replays' kernels by name equal to the launch
+    counters over the same steps (each replay adds the census its capture
+    recorded), the tied ``wte`` against the host engine's ``wte`` and
+    ``whead.T`` within 1e-4 relative in norm; (b) Qwen2.5-7B widths at 4
+    layers, seq 4096, batch 4 in 4 microbatches on phase 6's corpus
+    unpacked (packed documents are ineligible), the pp 2 [2, 2] JSON plan,
+    the same gates, peak under 79 GiB; (c) the reshard drill on (a)'s
+    plan: the host engine's checkpoint at step 2 into the compiled engine
+    and the compiled run's into the host engine
+    (``runtime/reshard.resume_elastic``), leaves and moments bit-equal
+    and each destination's next step finite; the compiled run resumed at
+    step 2 equals (a)'s bit for bit (losses, a SHA-256 of every leaf).
+    Launches a step: K1 T (2 + C) lps, K2 = K3 = T lps with T = m + 2 (pp
+    - 1), no K4/K5. Printed: step ms of the compiled run, the host
+    engine's and pp=1's; host ms a step outside the replay; bubble_frac;
+    peak beside the memory doctor's compiled stage peaks summed; the
+    recorded ``cost/flops``. ``python3 chip_smoke.py --compiled-only``
+    runs phases 1, 2 and 17.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
-layers, steps and evals say.
+layers, steps and evals say. Every line the script prints also goes to
+``chip_smoke.log`` beside it (the whole run, where a remote runner shows
+only the output's end).
 
 The last lines are the serving JSON line (phase 14's numbers and gates),
 the plan JSON line (phase 15's), the pipeline JSON line (phase 16's), the
-kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
+compiled JSON line (phase 17's), the kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Each kernel's row carries, under
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
@@ -258,6 +288,7 @@ under ``by_shape``.
 
 from __future__ import annotations
 
+import gc
 import glob
 import inspect
 import io
@@ -354,8 +385,17 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+# every line ``log`` prints also goes here (the output's end is what a
+# remote runner shows; the file keeps the whole run)
+LOG_PATH = os.path.join(ROOT, "chip_smoke.log")
+_log_file = None
+
+
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+    if _log_file is not None:
+        _log_file.write(msg + "\n")
+        _log_file.flush()
 
 
 def phase(title: str) -> None:
@@ -4449,6 +4489,556 @@ def pipe_blocks(checks, pipe, flash):
     return out
 
 
+# -- phase 17: the compiled single-program 1F1B pipeline, one CUDA graph -----
+
+COMP_PHASE = ("phase 17: main path of slice 13 (the compiled 1F1B pipeline "
+              "through train_dist, one CUDA graph a microbatch count: GPT-2 "
+              "small pp4, Qwen2.5-7B widths pp2, the reshard drill)")
+COMP_GPT2 = "gpt2-small-pp4-compiled-1f1b"
+COMP_QWEN = f"qwen2.5-7b-{QWEN_LAYERS}-layers-pp2-compiled-1f1b"
+COMP_STEPS, COMP_SAVE_AT = 4, 2  # steps held to the references; the save
+COMP_GPT2_STEPS = 6  # (a)'s compiled run: 2 traced replays, 2 timed after
+COMP_TRACE_FROM, COMP_TRACE_ITERS = 2, 2  # the traced replays
+# the compiled step against the host engine's and the pp=1 run's: step-0
+# loss and grad norm, the losses of steps 1-3, and the tied wte
+COMP_RTOL = 1e-4
+
+
+def comp_launches(hpc, microbatches: int):
+    """K1-K5 a step of the compiled engine: T = m + 2 (pp - 1) ticks, each
+    one forward unit and one backward unit over every lane (lanes folded
+    into the kernels' batch), so K1 T (2 + C) lps, K2 = K3 = T lps with C
+    = 1 for a checkpointed layer; the head's CE is plain: no K4/K5."""
+    ticks = microbatches + 2 * (hpc.pp_deg - 1)
+    lps, ckpt = hpc.pp_division[0], int(hpc.layers[0].checkpoint)
+    return {"flash_fwd": ticks * (2 + ckpt) * lps,
+            "flash_bwd_dkdv": ticks * lps, "flash_bwd_dq": ticks * lps,
+            "ce_fwd": 0, "ce_bwd": 0}
+
+
+def span_totals(paths):
+    """Host ms so far in the live registry's ``span_ms`` histograms, by
+    path (the run's telemetry registry while ``train`` runs with
+    observability on)."""
+    from hetu_galvatron_tpu_torch.observability.registry import get_registry
+
+    out = {p: 0.0 for p in paths}
+    for m in get_registry().metrics():
+        if m.name == "span_ms" and m.labels.get("path") in paths:
+            out[m.labels["path"]] = m.total
+    return out
+
+
+def comp_train(tag, yaml, over, tmp=None, trace=False):
+    """One ``train`` run of phase 17 with the launch counters reset just
+    before it and read just after. With ``tmp`` the run streams its
+    metrics there and returns the stream's ``cost/flops``; with ``trace``
+    also it traces its replays of steps ``COMP_TRACE_FROM`` .. +
+    ``COMP_TRACE_ITERS`` - 1 and returns the counters' delta over those
+    steps and the trace's attribution. Host
+    ms a step outside the replay: the ``train/step`` span less its
+    ``pp/compiled_step`` one, over the untraced steps after the first."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.observability.registry import (
+        MetricsRegistry,
+        get_registry,
+        set_registry,
+    )
+    from hetu_galvatron_tpu_torch.ops import _build
+    from hetu_galvatron_tpu_torch.runtime.hybrid_config import (
+        get_hybrid_parallel_config,
+    )
+
+    extra = []
+    if tmp is not None:
+        name = tag.split()[0].strip("()")
+        trace_dir = os.path.join(tmp, "trace_" + name)
+        stream = os.path.join(tmp, f"metrics_{name}.jsonl")
+        extra = ["observability.enabled=true",
+                 f"observability.metrics_path={stream}"]
+        if trace:
+            extra += ["observability.audit=false",
+                      f"profile.trace_dir={trace_dir}",
+                      f"profile.profile_warmup={COMP_TRACE_FROM}",
+                      f"profile.trace_iters={COMP_TRACE_ITERS}"]
+    args = load_config(yaml, ["parallel.mixed_precision=bf16",
+                              "profile.profile=1",
+                              f"profile.profile_warmup={PROFILE_WARMUP}",
+                              *over, *extra, *PIPE_EXTRA])
+    hpc = get_hybrid_parallel_config(args, max(args.parallel.num_devices, 1))
+    norms, snap = [], {}
+    paths = ("train/step", "train/step/pp/compiled_step")
+
+    def on_step(it, metrics):
+        norms.append(metrics["grad_norm"])  # read after the run
+        if it in (COMP_TRACE_FROM - 1, COMP_TRACE_FROM + COMP_TRACE_ITERS - 1):
+            snap[it] = dict(_build.launch_counts)
+        snap[("spans", it)] = span_totals(paths)
+
+    prev = set_registry(MetricsRegistry())  # this run's spans alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = train(args, on_step=on_step)
+        torch.cuda.synchronize()
+    finally:
+        set_registry(prev)
+    wall = time.perf_counter() - t0
+    steps = len(out["losses"])
+    res = dict(
+        losses=out["losses"], launches=dict(_build.launch_counts),
+        grad_norms=[float(g) for g in norms],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        step_ms=out["iter_ms"], wall_s=wall, plan=hpc.describe(),
+        params=out["params"], digests=param_digests(out["params"]),
+        pipeline=out["pipeline"], hpc=hpc, cfg=args.model)
+    ran = sorted(k[1] for k in snap if isinstance(k, tuple))
+    start = COMP_TRACE_FROM + COMP_TRACE_ITERS - 1 if trace else ran[0]
+    if (out["pipeline"] or {}).get("schedule") == "compiled" \
+            and ran[-1] > start:
+        first, last = snap[("spans", start)], snap[("spans", ran[-1])]
+        step_ms, replay_ms = ((last[p] - first[p]) / (ran[-1] - start)
+                              for p in paths)
+        res["host_ms_outside_replay"] = step_ms - replay_ms
+        res["replay_call_ms"] = replay_ms
+    if trace:
+        from hetu_galvatron_tpu_torch.observability.trace_analysis import (
+            attribute,
+            load_trace,
+        )
+
+        res["traced_launches"] = {
+            k: snap[COMP_TRACE_FROM + COMP_TRACE_ITERS - 1][k]
+            - snap[COMP_TRACE_FROM - 1][k] for k in KERNELS}
+        att = attribute(load_trace(trace_dir))
+        res["trace"] = dict(steps=att.steps,
+                            category_launches=dict(att.category_launches),
+                            wall_ms=att.wall_ms,
+                            idle_share=att.bubble_frac)
+    if tmp is not None:
+        recs = stream_records(stream)
+        res["cost_flops"] = {
+            r["labels"]["program"]: r["value"] for r in recs
+            if r.get("name") == "cost/flops"}
+        res["stream_names"] = sorted({r.get("name") for r in recs
+                                      if r.get("name")})
+    del out
+    log(f"  {tag}: losses {res['losses']}; step {res['step_ms']} ms "
+        f"(CUDA events, steps {PROFILE_WARMUP}..{steps - 1}); peak "
+        f"{res['peak_gib']:.2f} GiB; launches {res['launches']}; "
+        f"{wall:.1f} s")
+    return res
+
+
+def comp_gates(tag, run, refs, *, want_per_step):
+    """Phase 17's gates on a compiled run: finite losses and norms; against
+    each reference run (the host engine's, pp=1's) the step-0 loss and
+    grad norm and the losses of steps 1-3 within ``COMP_RTOL`` relative;
+    one capture; exact launches; peak memory. Returns the relative
+    differences by reference."""
+    losses, norms = run["losses"], run["grad_norms"]
+    steps = len(losses)
+    if steps < COMP_STEPS or not all(map(math.isfinite, losses + norms)):
+        raise SmokeFailure(f"{tag}: losses {losses}, grad norms {norms} not "
+                           f"{COMP_STEPS} or more finite")
+    rel = {}
+    for name, ref in refs.items():
+        def against(what, got, want):
+            r = abs(got - want) / abs(want)
+            log(f"  {tag}: {what} {got!r} against the {name} run's "
+                f"{want!r}: relative {r:.3e} (gate {COMP_RTOL})")
+            if r > COMP_RTOL:
+                raise SmokeFailure(f"{tag}: {what} {got} departs from the "
+                                   f"{name} run's {want} by {r:.3e}")
+            return r
+
+        rel[name] = dict(
+            loss0=against("step-0 loss", losses[0], ref["losses"][0]),
+            grad_norm0=against("step-0 grad norm", norms[0],
+                               ref["grad_norms"][0]),
+            later_losses=[against(f"step-{i} loss", losses[i],
+                                  ref["losses"][i])
+                          for i in range(1, COMP_STEPS)],
+            later_grad_norms=[  # printed, not gated
+                abs(norms[i] - ref["grad_norms"][i]) / ref["grad_norms"][i]
+                for i in range(1, COMP_STEPS)])
+    captures = run["pipeline"]["compile_count"]
+    log(f"  {tag}: {captures} capture(s) over {steps} steps; "
+        f"bubble_frac {run['pipeline']['bubble_frac']:.4f}")
+    if run["pipeline"]["schedule"] != "compiled" or captures != 1:
+        raise SmokeFailure(f"{tag}: {run['pipeline']}, want one capture of "
+                           "the compiled schedule")
+    want = {k: v * steps for k, v in want_per_step.items()}
+    if run["launches"] != want:
+        raise SmokeFailure(f"{tag}: launches {run['launches']}, want {want}")
+    if run["peak_gib"] >= MEM_LIMIT_GIB:
+        raise SmokeFailure(f"{tag}: peak {run['peak_gib']:.2f} GiB is not "
+                           f"under {MEM_LIMIT_GIB} GiB")
+    return rel
+
+
+def comp_trace_gate(tag, run):
+    """The traced replays' K1-K5 by kernel name against the launch
+    counters over the same steps (the census each replay adds)."""
+    found = {k: run["trace"]["category_launches"].get(k, 0) for k in KERNELS}
+    log(f"  {tag}: trace of steps {COMP_TRACE_FROM}-"
+        f"{COMP_TRACE_FROM + COMP_TRACE_ITERS - 1}: {run['trace']['steps']} "
+        f"steps, kernels by name {found} against the counters "
+        f"{run['traced_launches']}; device idle "
+        f"{100 * run['trace']['idle_share']:.2f}% of the traced wall")
+    if found != run["traced_launches"] or any(
+            run["traced_launches"][k] == 0 for k in FLASH):
+        raise SmokeFailure(f"{tag}: the trace's kernels {found} differ from "
+                           f"the counters {run['traced_launches']}")
+
+
+def comp_doctor(plan, cfg, world):
+    """The memory doctor's stage peaks summed (GiB) for the compiled
+    schedule of ``plan`` (a path or a dict)."""
+    from hetu_galvatron_tpu_torch.analysis.memory_doctor import (
+        diagnose_memory,
+    )
+
+    rep = diagnose_memory(plan, cfg, world, schedule_impl="compiled")
+    if not rep.ok:
+        raise SmokeFailure(f"memory doctor: {rep.errors}")
+    return sum(st.total_mb for st in rep.stages) / 1024
+
+
+def comp_print(tag, run, refs, doctor_gib, smi):
+    host = refs.get("host engine")
+    cost = run.get("cost_flops") or {}
+    log(f"  {tag}: step {run['step_ms']:.2f} ms against the host engine's "
+        f"{host['step_ms']:.2f} ms ({run['step_ms'] / host['step_ms']:.3f}x)"
+        f" and pp=1's {refs['pp=1']['step_ms']:.2f} ms; host "
+        f"{run['host_ms_outside_replay']:.3f} ms a step outside the replay "
+        f"(the replay call {run['replay_call_ms']:.3f} ms); peak "
+        f"{run['peak_gib']:.2f} GiB against the memory doctor's compiled "
+        f"stage peaks summed {doctor_gib:.2f} GiB (host engine "
+        f"{host['peak_gib']:.2f}, pp=1 {refs['pp=1']['peak_gib']:.2f}); "
+        f"cost/flops {cost or 'not recorded (no metrics sink)'} [{smi}]")
+
+
+def comp_record(run, refs, rel, want, doctor_gib, **extra):
+    out = dict(
+        plan=run["plan"], losses=run["losses"], grad_norms=run["grad_norms"],
+        step_ms=run["step_ms"], peak_gib=run["peak_gib"],
+        wall_s=run["wall_s"], launches=run["launches"],
+        launches_per_step=want, eval_launches={k: 0 for k in want},
+        steps=len(run["losses"]), pipeline=run["pipeline"],
+        host_ms_outside_replay=run.get("host_ms_outside_replay"),
+        replay_call_ms=run.get("replay_call_ms"),
+        doctor_stage_sum_gib=doctor_gib, against=rel,
+        cost_flops=run.get("cost_flops"), **extra)
+    for name, ref in refs.items():
+        out[name] = dict(losses=ref["losses"], grad_norms=ref["grad_norms"],
+                         step_ms=ref["step_ms"], peak_gib=ref["peak_gib"],
+                         launches=ref["launches"])
+    return out
+
+
+def comp_gpt2(smi, tmp):
+    """(a) GPT-2 small uncut (tied, 12 layers), pp 4 1F1B [3, 3, 3, 3],
+    batch 8 in 4 microbatches at seq 1024: the compiled run (6 steps,
+    observability on, its replays of steps 2-3 traced, 4-5 timed)
+    against 4 steps of the host engine and of a pp=1 run of the same
+    weights and batches; the tied wte after step 3 against the host
+    engine's two copies, from a 4-step compiled run."""
+    import torch
+
+    common = ["parallel.global_train_batch_size=8",
+              f"parallel.chunks={PIPE_CHUNKS}",
+              f"train.train_iters={COMP_STEPS}",
+              f"train.lr_decay_iters={COMP_STEPS}"]
+    pp4 = common + ["parallel.pp_deg=4", "parallel.num_devices=4",
+                    "parallel.pipeline_type=pipedream_flush"]
+    refs = {"pp=1": comp_train("(a) pp=1, chunks 4", GPT2_YAML, common),
+            "host engine": comp_train("(a) host engine pp 4 1F1B", GPT2_YAML,
+                                      pp4)}
+    del refs["pp=1"]["params"]
+    four = comp_train("(a) compiled pp 4 1F1B, 4 steps", GPT2_YAML,
+                      pp4 + ["pipeline.schedule_impl=compiled"])
+    wte = four.pop("params")["embed"]["wte"].detach().float()
+    run = comp_train("(a) compiled pp 4 1F1B", GPT2_YAML,
+                     pp4 + ["pipeline.schedule_impl=compiled",
+                            f"train.train_iters={COMP_GPT2_STEPS}"], tmp,
+                     trace=True)
+    if run["losses"][:COMP_STEPS] != four["losses"]:
+        raise SmokeFailure(f"(a) the 4-step compiled run {four['losses']} "
+                           f"departs from the 6-step one {run['losses']}")
+    want = comp_launches(run["hpc"], PIPE_CHUNKS)
+    rel = comp_gates("(a)", run, refs, want_per_step=want)
+    comp_trace_gate("(a)", run)
+    host = refs["host engine"].pop("params")
+    tied = {}
+    for name, other in (("wte", host[0]["embed"]["wte"]),
+                        ("whead.T", host[-1]["head"]["whead"].t())):
+        d = (wte - other.detach().float())
+        tied[name] = dict(rel_norm=float(d.norm() / wte.norm()),
+                          max_abs_over_max=float(d.abs().max()
+                                                 / wte.abs().max()))
+    log(f"  (a) the compiled wte after step {COMP_STEPS - 1} against the "
+        f"host engine's copies: {tied} (gate {COMP_RTOL} on the relative "
+        "norm)")
+    if not bool(torch.isfinite(wte).all()) or any(
+            t["rel_norm"] > COMP_RTOL for t in tied.values()):
+        raise SmokeFailure(f"(a) the tied wte departs: {tied}")
+    del host, wte
+    plan = pipe_plan_dict(12, 8, [3, 3, 3, 3])
+    doctor = comp_doctor(plan, run["cfg"], 4)
+    comp_print("(a)", run, refs, doctor, smi)
+    rec = comp_record(run, refs, rel, want, doctor, tied_wte=tied,
+                      traced_launches=run["traced_launches"],
+                      trace=run["trace"])
+    return rec, run
+
+
+def pipe_plan_dict(n, gbs, division):
+    """A searched-style plan: pp ``len(division)`` 1F1B, no per-layer
+    checkpoint, batch ``gbs`` in ``PIPE_CHUNKS`` microbatches."""
+    return {"pp_deg": len(division), "tp_sizes_enc": ",".join(["1"] * n),
+            "tp_consecutive_flags": ",".join(["1"] * n),
+            "dp_types_enc": ",".join(["0"] * n),
+            "use_sp": ",".join(["0"] * n),
+            "cp_sizes_enc": ",".join(["1"] * n),
+            "checkpoint": ",".join(["0"] * n),
+            "global_bsz": gbs, "chunks": PIPE_CHUNKS,
+            "pp_division": ",".join(map(str, division)),
+            "pipeline_type": "pipedream_flush", "default_dp_type": "ddp",
+            "vtp": 1, "vsp": 0, "embed_sdp": 0}
+
+
+def comp_qwen(smi, tmp, prefix):
+    """(b) Qwen2.5-7B widths at 4 layers, seq 4096, batch 4 in 4
+    microbatches on phase 6's corpus unpacked (packed documents are
+    ineligible; end-of-document loss masking kept), plain CE: the compiled
+    pp 2 1F1B [2, 2] JSON plan against the host engine on the same plan
+    and a pp=1 run with the same chunks."""
+    common = [f"model.num_hidden_layers={QWEN_LAYERS}",
+              "model.use_fused_ce=false", f"train.train_iters={COMP_STEPS}",
+              "data.dataset=indexed", f"data.data_path=['{prefix}']",
+              "data.split=98,1,1", "data.eod_mask_loss=true"]
+    refs = {"pp=1": comp_train("(b) pp=1, chunks 4, plain CE", QWEN_YAML,
+                               common + [
+        f"parallel.global_train_batch_size={PIPE_QWEN_BSZ}",
+        f"parallel.chunks={PIPE_CHUNKS}"])}
+    del refs["pp=1"]["params"]
+    plan = pipe_plan_file(tmp, "comp_pp2.json", [2, 2])
+    json_plan = ["parallel.num_devices=2", "parallel.config_mode=json",
+                 f"parallel.galvatron_config_path={plan}"]
+    refs["host engine"] = comp_train("(b) host engine pp 2 1F1B", QWEN_YAML,
+                                     common + json_plan)
+    del refs["host engine"]["params"]
+    run = comp_train("(b) compiled pp 2 1F1B", QWEN_YAML, common + json_plan
+                     + ["pipeline.schedule_impl=compiled"], tmp)
+    del run["params"]
+    want = comp_launches(run["hpc"], PIPE_CHUNKS)
+    rel = comp_gates("(b)", run, refs, want_per_step=want)
+    doctor = comp_doctor(plan, run["cfg"], 2)
+    comp_print("(b)", run, refs, doctor, smi)
+    return comp_record(run, refs, rel, want, doctor)
+
+
+def comp_reshard(smi, tmp, gpt2_run):
+    """(c) The reshard drill on (a)'s plan: the host engine's checkpoint at
+    step 2 into the compiled engine, and the compiled run's checkpoint at
+    step 2 into the host engine (``runtime/reshard.resume_elastic``):
+    every leaf and moment bit-equal to the checkpoint's canonical form,
+    and each destination's next step finite; then the compiled run resumed
+    from its own checkpoint in a fresh ``train`` to step 4 equals (a)'s
+    uninterrupted compiled run bit for bit (losses, a SHA-256 of every
+    leaf)."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.models.builder import (
+        init_causal_lm,
+        named_leaves,
+    )
+    from hetu_galvatron_tpu_torch.models.modules import compute_dtype_of
+    from hetu_galvatron_tpu_torch.runtime import reshard as R
+    from hetu_galvatron_tpu_torch.runtime.compiled_pipeline import (
+        CompiledPipelineEngine,
+    )
+    from hetu_galvatron_tpu_torch.runtime.dataloader import (
+        get_train_valid_test_data_iterators,
+    )
+    from hetu_galvatron_tpu_torch.runtime.hybrid_config import (
+        get_hybrid_parallel_config,
+    )
+    from hetu_galvatron_tpu_torch.runtime.pipeline import PipelineEngine
+    from hetu_galvatron_tpu_torch.runtime.trainer import to_device
+
+    common = ["parallel.global_train_batch_size=8",
+              f"parallel.chunks={PIPE_CHUNKS}",
+              f"train.lr_decay_iters={COMP_STEPS}", "parallel.pp_deg=4",
+              "parallel.num_devices=4",
+              "parallel.pipeline_type=pipedream_flush"]
+    saves = {}
+    for name, over in (("host", []),
+                       ("compiled", ["pipeline.schedule_impl=compiled"])):
+        ck = os.path.join(tmp, f"reshard_{name}")
+        saves[name] = (ck, comp_train(
+            f"(c) {name} engine to the save", GPT2_YAML, common + over + [
+                f"train.train_iters={COMP_SAVE_AT}", f"ckpt.save={ck}",
+                f"ckpt.save_interval={COMP_SAVE_AT}"]))
+        del saves[name][1]["params"]
+    args = load_config(GPT2_YAML, ["parallel.mixed_precision=bf16", *common,
+                                   *PIPE_EXTRA])
+    hpc = get_hybrid_parallel_config(args, 4)
+    dev = torch.device(args.device if args.device == "cpu" else "cuda")
+    cd = compute_dtype_of(args.parallel.mixed_precision)
+    batch = to_device(next(get_train_valid_test_data_iterators(
+        args, global_batch_size=hpc.global_bsz)[0]), dev)
+    out = {}
+    for src, engine_cls in (("host", CompiledPipelineEngine),
+                            ("compiled", PipelineEngine)):
+        ck = os.path.join(saves[src][0], f"step_{COMP_SAVE_AT}")
+        eng = engine_cls(args.model, hpc, args.train, [dev] * 4,
+                         compute_dtype=cd)
+        sp = eng.split_params(init_causal_lm(args.model, seed=1, device=dev))
+        so = eng.init_opt(sp)
+        canon, copt, step, _ = R.load_checkpoint_canonical(
+            ck, tie_word_embeddings=args.model.tie_word_embeddings)
+        nsp, nso, _ = R.resume_elastic(
+            ck, sp, so, tie_word_embeddings=args.model.tie_word_embeddings)
+        del sp, so
+        got = dict(named_leaves(eng.merge_params(nsp)))
+        leaves = all(torch.equal(got[n].cpu(), t) for n, t in
+                     named_leaves(canon)) and len(got) == len(
+            list(named_leaves(canon)))
+        opts = nso if isinstance(nso, list) else [nso]
+        moments = ([t.cpu() for o in opts for t in o.mu + o.nu])
+        merged = R.load_checkpoint_canonical(
+            ck, tie_word_embeddings=args.model.tie_word_embeddings)[1]
+        # the destination's moments, canonicalized through a save of its
+        # own, against the source's
+        dst_ck = os.path.join(tmp, f"reshard_{src}_dst")
+        from hetu_galvatron_tpu_torch.runtime.checkpoint import (
+            save_checkpoint,
+        )
+
+        save_checkpoint(dst_ck, step, nsp, nso, hpc=hpc)
+        back = R.load_checkpoint_canonical(
+            os.path.join(dst_ck, f"step_{step}"),
+            tie_word_embeddings=args.model.tie_word_embeddings)[1]
+        mom = all(torch.equal(a, b) for key in ("mu", "nu") for (_, a), (_, b)
+                  in zip(named_leaves(merged[key]), named_leaves(back[key])))
+        counts = {o.count for o in opts} == {merged["count"]}
+        if isinstance(nsp, list):  # the host layout: its tied copy
+            leaves = leaves and torch.equal(nsp[-1]["head"]["whead"],
+                                            nsp[0]["embed"]["wte"].t())
+        _, _, m = eng.train_step(nsp, nso, batch)
+        finite = math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+        if hasattr(eng, "release"):
+            eng.release()
+        out[src] = dict(leaves_bit_equal=leaves, moments_bit_equal=mom,
+                        count_equal=counts, moments=len(moments),
+                        next_step=m, next_step_finite=finite)
+        log(f"  (c) {src} checkpoint at step {step} into the "
+            f"{'compiled' if src == 'host' else 'host'} engine: "
+            f"{len(got)} leaves bit-equal: {leaves}; {len(moments)} moments "
+            f"bit-equal: {mom}; count equal: {counts}; next step {m} "
+            f"finite: {finite}")
+        if not (leaves and mom and counts and finite):
+            raise SmokeFailure(f"(c) the reshard of the {src} checkpoint "
+                               f"departs: {out[src]}")
+        del nsp, nso, eng, got, canon, copt
+        gc.collect()
+        torch.cuda.empty_cache()
+    rest = comp_train("(c) compiled, resumed", GPT2_YAML, common + [
+        "pipeline.schedule_impl=compiled",
+        f"train.train_iters={COMP_GPT2_STEPS}",
+        f"ckpt.load={saves['compiled'][0]}"])
+    del rest["params"]
+    stitched = saves["compiled"][1]["losses"] + rest["losses"]
+    same = (stitched == gpt2_run["losses"]
+            and rest["digests"] == gpt2_run["digests"])
+    log(f"  (c) compiled resume: stitched losses equal (a)'s: "
+        f"{stitched == gpt2_run['losses']}; {len(rest['digests'])} leaves' "
+        f"SHA-256 equal: {rest['digests'] == gpt2_run['digests']} [{smi}]")
+    if not same:
+        raise SmokeFailure(f"(c) the compiled resume departs: {stitched} "
+                           f"against {gpt2_run['losses']}")
+    out["resume_bit_identical"] = same
+    return out
+
+
+def check_comp_kernels(checks, peak_flops, peak_bytes):
+    """K1-K3 at phase 17's folded shapes (the lanes in the batch), against
+    their plain versions and timed beside the library: GPT-2's pp 4 lanes
+    of 2 (B=8) and the Qwen cell's pp 2 lanes of 1 (B=2, unpacked); the
+    records join ``checks``."""
+    import torch
+
+    gb, qb = 4 * (8 // PIPE_CHUNKS), 2 * (PIPE_QWEN_BSZ // PIPE_CHUNKS)
+    flash = {
+        COMP_GPT2: check_path_flash(
+            "compiled GPT-2 shape", f"comp gpt2 B={gb} N=K={N} S={S} D={D} "
+            "bf16 causal", (gb, N, N, S, D), False, peak_flops, peak_bytes),
+        COMP_QWEN: check_path_flash(
+            "compiled Qwen shape", f"comp qwen B={qb} N={QN} K={QK} S={QS} "
+            f"D={QD} bf16 causal", (qb, QN, QK, QS, QD), False, peak_flops,
+            peak_bytes),
+    }
+    for res in flash.values():
+        for k, recs in res["checks"].items():
+            checks[k] += recs
+    torch.cuda.empty_cache()
+    return flash
+
+
+def comp_paths(smi: str, checks, peak_flops, peak_bytes):
+    """Phase 17: K1-K3 at its folded shapes, then (a)-(c) in a temporary
+    directory removed at exit; returns the runs' record and the kernels'
+    checks and times."""
+    import torch
+
+    t0 = time.perf_counter()
+    flash = check_comp_kernels(checks, peak_flops, peak_bytes)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_comp_") as tmp:
+        out = {}
+        out[COMP_GPT2], gpt2_run = comp_gpt2(smi, tmp)
+        out["reshard"] = comp_reshard(smi, tmp, gpt2_run)
+        del gpt2_run
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefix = write_qwen_corpus(tmp)[0]
+        out[COMP_QWEN] = comp_qwen(smi, tmp, prefix)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    out["device"] = smi
+    log(f"  phase 17 in {out['wall_s']:.1f} s [{smi}]")
+    return out, flash
+
+
+def comp_blocks(checks, comp, flash):
+    """Phase 17's K1-K3 blocks: each compiled run's launches beside the
+    checks and times at its folded shape."""
+    out = {}
+    for k in FLASH:
+        out[k] = {}
+        for key in (COMP_GPT2, COMP_QWEN):
+            timing = flash[key]["timing"][k]
+            block = path_block(k, comp[key], timing, max_err(
+                checks, k, timing["shape"], ("elementwise",)),
+                timing["shape"])
+            block.update(flash[key]["report"][k])
+            if k in BWD:
+                rep = flash[key]["report"]
+                block.update(pair_ms=rep["pair_ms"],
+                             pair_beats_library=rep["pair_beats_library"])
+            out[k][key] = block
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4463,6 +5053,17 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing ({e}); run from the "
               "root of the repository", file=sys.stderr)
         return 3
+    global _log_file
+    with open(LOG_PATH, "w") as f:
+        _log_file = f
+        try:
+            return run(torch, _build, TF)
+        finally:
+            _log_file = None
+
+
+def run(torch, _build, TF) -> int:
+    """Phases 1-17 (or the subset a flag names) on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
@@ -4518,6 +5119,19 @@ def main() -> int:
         log(json.dumps({"pipeline": pipe}))
         log(json.dumps({"pipeline_kernels": pipe_blocks(checks, pipe,
                                                         pipe_flash)}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--compiled-only"]:
+        phase(COMP_PHASE)
+        checks = {k: [] for k in FLASH}
+        comp, comp_flash = comp_paths(smi, checks, peak_flops, peak_bytes)
+        log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+        log(json.dumps({"compiled": comp}))
+        log(json.dumps({"compiled_kernels": comp_blocks(checks, comp,
+                                                        comp_flash)}))
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -4720,6 +5334,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(PIPE_PHASE)
     pipe, pipe_flash = pipe_paths(smi, checks, peak_flops, peak_bytes)
+    torch.cuda.empty_cache()
+    phase(COMP_PHASE)
+    comp, comp_flash = comp_paths(smi, checks, peak_flops, peak_bytes)
 
     # one block per path that runs the kernel: its launches beside the
     # times measured at that path's shape
@@ -4783,6 +5400,13 @@ def main() -> int:
         earlier[k][PLAN_PATH] = qwen_block(k, plan, checks, qwen_flash, ce)
     for k, blocks in pipe_blocks(checks, pipe, pipe_flash).items():
         earlier[k].update(blocks)
+    # phase 17: K1-K3 at its folded shapes; K4/K5 launch 0 times there
+    # (every lane's head runs the plain CE), beside the Qwen path's times
+    for k, blocks in comp_blocks(checks, comp, comp_flash).items():
+        earlier[k].update(blocks)
+    for k in ("ce_fwd", "ce_bwd"):
+        earlier[k][COMP_QWEN] = qwen_block(k, comp[COMP_QWEN], checks,
+                                           qwen_flash, ce)
     rows = kernel_rows(checks, zoo_k, zoo, earlier)
     rows[0]["autograd_checks"] = auto
     rows[3]["autograd_checks"] = ce["zloss"]
@@ -4792,6 +5416,7 @@ def main() -> int:
     log(json.dumps({"serving": serving}))
     log(json.dumps({"plan": plan}))
     log(json.dumps({"pipeline": pipe}))
+    log(json.dumps({"compiled": comp}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 <config.yaml> [key=value ...]``.
 
 Counterpart of ``hetu_galvatron_tpu/cli/train_dist.py`` for its pp=1
-single-device branch and its host-sequenced pipeline branch (:880-932):
+single-device branch and its pipeline branch (:880-932):
 load config -> initialize -> plan -> init model -> optimizer -> data ->
 resume -> step loop with timing, loss log, fault checks and checkpoints
 -> exit code. A plan with ``pp_deg > 1`` whose stages each run one rank
@@ -13,9 +13,16 @@ plan's ``pp_deg``, ``pp_division``, ``vpp_deg``) trains through
 the optimizer state, checkpoints and the resume are per stage, the
 evaluations run ``eval_step``, and the ramp passes its microbatch count.
 The stages run the plain cross-entropy whatever ``model.use_fused_ce``
-says, as JAX's do. ``pipeline.schedule_impl=compiled`` (the
-single-program schedule) is refused: it is not ported, and the launcher
-never runs the host engine in its place. On a CUDA device with
+says, as JAX's do. ``pipeline.schedule_impl=compiled`` selects the engine
+as JAX does (:880-915): a plan the compiled schedule can express trains
+through ``runtime/compiled_pipeline.CompiledPipelineEngine`` (the lockstep
+1F1B step replayed as one CUDA graph a microbatch count, the stacked
+layout in its state and checkpoints; the log line gives its
+``bubble_frac``), and a plan it cannot express through the host engine,
+with the reason logged in JAX's words (on a CUDA device a dropout plan is
+one: a captured graph would repeat its masks). ``train()`` returns which
+engine ran, its captures and its recorded program costs under
+``"pipeline"``. On a CUDA device with
 ``model.use_flash_attn`` every layer's attention core is the port's
 ``flash_sdpa`` (the CUDA kernels K1-K3); ``model.use_fused_ce`` runs the
 loss through ``fused_ce_nll`` (K4/K5) and ``parallel.global_checkpoint``
@@ -218,6 +225,9 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         MicrobatchIterator,
     )
     from hetu_galvatron_tpu_torch.runtime.optimizer import make_optimizer
+    from hetu_galvatron_tpu_torch.runtime.compiled_pipeline import (
+        CompiledPipelineEngine,
+    )
     from hetu_galvatron_tpu_torch.runtime.pipeline import PipelineEngine
     from hetu_galvatron_tpu_torch.runtime.rerun_machine import (
         FaultDrill,
@@ -241,12 +251,6 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
     hpc = get_hybrid_parallel_config(args, state.world_size)
     state.log(f"parallel plan: {hpc.describe()}")
     pipe = hpc.pp_deg > 1
-    if pipe and args.pipeline.schedule_impl == "compiled":
-        raise NotImplementedError(
-            "pipeline.schedule_impl=compiled: the single-program pipeline "
-            "schedule (runtime/compiled_pipeline.py) is not ported yet "
-            "(ROADMAP item 12b); pipeline.schedule_impl=host runs the "
-            "host-sequenced engine")
 
     cfg = args.model
     params = init_causal_lm(cfg, seed=args.train.seed, device=device)
@@ -321,19 +325,43 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         state.log(f"per-layer remat ({cfg.remat_policy}) on "
                   f"{sum(hpc.checkpoint_flags)} of "
                   f"{len(hpc.checkpoint_flags)} layers")
-    if pipe:
+    engine = None
+    if pipe and args.pipeline.schedule_impl == "compiled":
+        # JAX's engine choice per plan: the compiled schedule where it can
+        # express the plan, else the host engine with the reason logged
+        reason = CompiledPipelineEngine.unsupported_reason(
+            cfg, hpc, data=args.data, device=state.devices[0])
+        if reason is not None:
+            state.log("pipeline.schedule_impl=compiled cannot express this "
+                      f"plan ({reason}); falling back to the host engine")
+        else:
+            engine = CompiledPipelineEngine(cfg, hpc, args.train,
+                                            state.devices,
+                                            compute_dtype=compute_dtype)
+            state.log(
+                "pipeline schedule: compiled single-program 1F1B "
+                f"(bubble_frac {engine.bubble_frac():.3f}; {hpc.pp_deg} "
+                f"stage lanes on {engine.device}, "
+                + ("one CUDA graph a microbatch count" if engine.graphs
+                   else "run eagerly off the card")
+                + "; attention through "
+                + ("the flash kernels (CUDA K1-K3)" if engine.flash
+                   else "the plain core")
+                + "; every lane's head runs the plain cross-entropy)")
+    if pipe and engine is None:
         engine = PipelineEngine(cfg, hpc, args.train, state.devices,
                                 compute_dtype=compute_dtype)
-        # the stage trees share the model's leaves on their device; from
-        # here the run's state is the list of stages
-        params = engine.split_params(params)
-        opt_state = engine.init_opt(params)
         state.log(
             f"pipeline: {len(engine.stages)} chunks on {hpc.pp_deg} stages "
             f"({hpc.pipeline_type}), every stage's attention "
             + ("through the flash kernels (CUDA K1-K3)"
                if engine.stages[0].attn else "through the plain core")
             + "; the head stage runs the plain cross-entropy")
+    if pipe:
+        # the stage trees (or the stacked tree) take over the model's
+        # leaves; from here the run's state is the engine's layout
+        params = engine.split_params(params)
+        opt_state = engine.init_opt(params)
 
         def forward_backward_for(chunks):
             return lambda p, b: engine.forward_backward(
@@ -671,6 +699,10 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         raise
     finally:
         guard.__exit__()
+        pipe_record = pipeline_record(engine)
+        if hasattr(engine, "release"):
+            # the captured graphs' pool holds a step's peak between replays
+            engine.release()
         if chaos is not None:
             chaos.uninstall()
         try:
@@ -718,7 +750,20 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
             "trace_path": profiler.trace_path,
             "trace_window_ms": profiler.trace_window_ms,
             "predicted_time_cost_ms": predicted,
+            "pipeline": pipe_record,
             "exit_code": exit_code}
+
+
+def pipeline_record(engine) -> Optional[Dict[str, Any]]:
+    """Which pipeline engine ran, with the compiled engine's captures,
+    ``bubble_frac`` and recorded program costs (None at pp=1)."""
+    if engine is None:
+        return None
+    if not hasattr(engine, "compile_count"):
+        return {"schedule": "host"}
+    return {"schedule": "compiled", "compile_count": engine.compile_count(),
+            "bubble_frac": engine.bubble_frac(),
+            "program_costs": engine.program_costs()}
 
 
 def _exit_code(out: Dict[str, Any]) -> int:

@@ -397,7 +397,8 @@ _SAVED_DOTS = {
 }
 
 
-def remat(fn: Callable, cfg: ModelArgs) -> Callable:
+def remat(fn: Callable, cfg: ModelArgs,
+          preserve_rng_state: bool = True) -> Callable:
     """Per-layer activation checkpointing with ``cfg.remat_policy``
     (JAX ``remat``): "full" recomputes the whole layer in the backward;
     "dots" / "dots_no_batch" keep the outputs of the matrix products listed
@@ -405,7 +406,10 @@ def remat(fn: Callable, cfg: ModelArgs) -> Callable:
     layer simply runs. The wrapped function must draw any randomness from
     generators it creates inside itself (``generator_from_seed``): the
     recompute restores the global RNG state only, so an explicit generator
-    advanced by the first pass would draw a different mask."""
+    advanced by the first pass would draw a different mask. Such a layer
+    needs no global RNG state, and a caller that captures the layer into
+    a CUDA graph passes ``preserve_rng_state=False``: stashing the global
+    state reads it on the host, which a capture cannot."""
     policy = cfg.remat_policy
     if policy == "full":
         context_fn = None
@@ -420,8 +424,10 @@ def remat(fn: Callable, cfg: ModelArgs) -> Callable:
         if not torch.is_grad_enabled():
             return fn(*args)
         if context_fn is None:
-            return checkpoint(fn, *args, use_reentrant=False)
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=preserve_rng_state)
         return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=preserve_rng_state,
                           context_fn=context_fn)
 
     return wrapped
@@ -500,8 +506,9 @@ def apply_embedding(p: Params, tokens: torch.Tensor, cfg: ModelArgs,
     if "ln" in p:
         x = apply_norm(p["ln"], x, cfg)
     if cfg.scale_embeddings:
-        x = x * torch.tensor(float(cfg.hidden_size), dtype=torch.float32,
-                             device=x.device).sqrt().to(x.dtype)
+        # a fill, not a host copy: the compiled pipeline captures this
+        x = x * torch.full((), float(cfg.hidden_size), dtype=torch.float32,
+                           device=x.device).sqrt().to(x.dtype)
     x = dropout(x, cfg.hidden_dropout, dropout_rng)
     return x.to(compute_dtype)
 

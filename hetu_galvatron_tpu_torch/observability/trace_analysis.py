@@ -21,9 +21,20 @@ Port of the attribution half of
   ``optimizer``, ``norm_reduce``, ``elementwise``, ``copy``, ``other``),
   with NCCL's collectives ahead of them under JAX's collective names.
 
-Out of this port, with the reason: ``jit_cost_summary`` /
-``maybe_record_jit_cost`` read an XLA compiled program's cost analysis,
-which eager PyTorch has none of; the plan audit
+``jit_cost_summary`` :430 and ``maybe_record_jit_cost`` :461 count one
+program's FLOPs, the captured step of the compiled pipeline
+(``runtime/compiled_pipeline.py``): eager PyTorch has no compiled
+program whose cost analysis could be read, so the program runs once (its
+warm-up run, which the step needs anyway) under a dispatch mode that
+applies ``torch.utils.flop_counter``'s formulas to the operators that
+have one and runs every operator as it is (``FlopCounterMode`` itself
+decomposes the others, which changes the run's bits), and the caller
+adds what no mode can see, the kernels launched through ctypes (K1-K5),
+as ``extra_flops``. ``bytes_accessed`` is left out: eager PyTorch has no
+count of the bytes a program moves, as JAX leaves out a key XLA cannot
+answer.
+
+Out of this port, with the reason: the plan audit
 (``predicted_comm_per_step``, ``audit_plan``, ``analyze_and_audit``) needs
 the cost model and the collectives of multi-rank plans.
 """
@@ -34,8 +45,9 @@ import glob
 import gzip
 import json
 import os
+import weakref
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 # ---------------------------------------------------------------------------
 # trace loading (Chrome trace event format, torch.profiler output)
@@ -290,3 +302,83 @@ def attribute(trace: TraceData,
             attr.steps = max(step_counts[name].values())
             break
     return attr
+
+
+# ---------------------------------------------------------------------------
+# program cost (FLOPs of one run of a program)
+# ---------------------------------------------------------------------------
+
+Flops = Union[float, Callable[[], float], None]
+
+
+def _flop_mode():
+    """A dispatch mode that runs every operator as it is and adds the
+    ``torch.utils.flop_counter`` formula of each one that has one to its
+    ``flops``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class FlopCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.flops += formula(*args, **kwargs, out_val=out)
+            return out
+
+    return FlopCount()
+
+
+def jit_cost_summary(fn: Callable[..., Any], args: Sequence[Any] = (),
+                     kwargs: Optional[Dict[str, Any]] = None,
+                     extra_flops: Flops = None
+                     ) -> Tuple[Any, Dict[str, float]]:
+    """Run ``fn(*args, **kwargs)`` once, counting the FLOPs of its
+    operators (:func:`_flop_mode`; the run's bits are those of a run
+    without it): ``(its result, {"flops": counted + extra_flops})``.
+    ``extra_flops`` (a number, or a callable read after the run) is the
+    work of kernels no dispatch mode sees. ``fn``'s own errors propagate;
+    the cost is {} when nothing was counted."""
+    mode = _flop_mode()
+    with mode:
+        out = fn(*args, **(kwargs or {}))
+    extra = extra_flops() if callable(extra_flops) else (extra_flops or 0.0)
+    flops = float(mode.flops) + float(extra)
+    return out, ({"flops": flops} if flops > 0 else {})
+
+
+# one record per (registry, program): keyed on the live registry object so
+# a reused id() after GC can never suppress a fresh registry's recording
+_RECORDED: "weakref.WeakKeyDictionary[Any, set]" = weakref.WeakKeyDictionary()
+
+
+def maybe_record_jit_cost(program: str, fn: Callable[..., Any],
+                          args: Sequence[Any] = (),
+                          kwargs: Optional[Dict[str, Any]] = None,
+                          registry: Any = None, extra_flops: Flops = None
+                          ) -> Tuple[Any, Optional[Dict[str, float]]]:
+    """Run ``fn`` and return ``(its result, the cost recorded or None)``.
+    Once per (registry, program) the run is counted (:func:
+    `jit_cost_summary`) and recorded as the ``cost/flops`` gauge labelled
+    ``program=`` plus a ``program_cost`` event; with no explicit registry
+    and no sinks configured ``fn`` simply runs, as JAX's is a no-op
+    there."""
+    from hetu_galvatron_tpu_torch.observability.registry import get_registry
+
+    reg = registry if registry is not None else get_registry()
+    seen = _RECORDED.setdefault(reg, set())
+    if (registry is None and not reg.sinks) or program in seen:
+        return fn(*args, **(kwargs or {})), None
+    seen.add(program)
+    out, cost = jit_cost_summary(fn, args, kwargs, extra_flops)
+    if not cost:
+        return out, None
+    for k, v in cost.items():
+        reg.gauge(f"cost/{k}", program=program).set(v)
+    reg.event("program_cost", {"program": program, **cost})
+    return out, cost

@@ -10,7 +10,10 @@ reuses it and an edited source builds anew.
 Pointers and the CUDA stream cross as ``ctypes.c_void_p``; every launch
 function returns ``cudaGetLastError()`` after its launch, and
 :func:`check_launch` raises when it is not 0 and otherwise counts the launch
-in :data:`launch_counts`, the one registry of kernel launches.
+in :data:`launch_counts`, the one registry of kernel launches. A launch
+made while a CUDA graph captures is recorded, not run: it goes into the
+census of the open :class:`CaptureCensus` instead, and every replay of the
+graph adds that census to :data:`launch_counts` (``CaptureCensus.replayed``).
 
 :func:`build_host_library` builds the host-side C++ helpers of ``csrc/``
 (the search's DP core, ``csrc/dp_core.cpp``) with the host compiler and
@@ -190,12 +193,43 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+class CaptureCensus:
+    """The kernel launches one CUDA-graph capture recorded: open it around
+    the capture (``with census:``), then call :meth:`replayed` after each
+    replay of the graph, which runs them all again."""
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {name: 0 for name in launch_counts}
+
+    def __enter__(self) -> "CaptureCensus":
+        global _census
+        if _census is not None:
+            raise RuntimeError("a capture census is already open")
+        _census = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _census
+        _census = None
+
+    def replayed(self) -> None:
+        for name, n in self.counts.items():
+            launch_counts[name] += n
+
+
+_census: Optional[CaptureCensus] = None
+
+
 def check_launch(name: str, code: int) -> None:
-    """Raises on a failed launch of kernel ``name``, else counts it."""
+    """Raises on a failed launch of kernel ``name``, else counts it: in
+    :data:`launch_counts`, or in the open census while a graph captures."""
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {code}")
-    launch_counts[name] += 1
+    if _census is not None:
+        _census.counts[name] += 1
+    else:
+        launch_counts[name] += 1
 
 
 def int64_array(values) -> ctypes.Array:

@@ -218,6 +218,16 @@ def computed_tiles(S: int, Sk: int, tile_q: int, tile_k: int, *,
     return ok
 
 
+def flash_flops(name: str, B: int, N: int, S: int, Sk: int, D: int, *,
+                causal: bool = True) -> float:
+    """The matrix-product FLOPs kernel ``name`` does at this shape, over
+    the (q, k) pairs it must compute (every q's earlier keys when causal):
+    K1 q.k and p.v, K2 s, dp, dv and dk, K3 s, dp and dq."""
+    pairs = B * N * S * (S + 1) / 2 if causal else float(B * N * S * Sk)
+    return {"flash_fwd": 4, "flash_bwd_dkdv": 8,
+            "flash_bwd_dq": 6}[name] * pairs * D
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------

@@ -27,14 +27,20 @@ The payload format is the port's own (the JAX package writes orbax):
   (names ``<s>.<leaf>``, the tied copy ``<last>.head.whead`` among them)
   and the list of stage AdamW states (``<s>.count``, ``<s>.mu.<leaf>``,
   ...);
+* the compiled pipeline's state (``runtime/compiled_pipeline.py``) in its
+  stacked layout: one tree whose ``stages.<j>.<leaf>`` carry the ``[pp]``
+  axis, and one AdamW state over it (``mu.stages.<j>.<leaf>``, ...);
 * ``meta.json``: the JAX keys ``step``, ``hybrid_parallel_config`` (the
   plan fingerprint with ``pp_division``, ``vpp_deg`` above 1 and
-  ``world_size``; a checkpoint of another stage layout raises
-  :class:`PlanMismatchError` whether or not the plan is checked
-  strictly, one of another world :class:`WorldSizeMismatchError`) and ``train_state`` (``step``,
-  ``seed``, ``telemetry_step``, ``batches_consumed``,
-  ``consumed_samples``, ``rerun``; the JAX goodput totals belong to the
-  observability slice).
+  ``world_size``) and ``train_state`` (``step``, ``seed``,
+  ``telemetry_step``, ``batches_consumed``, ``consumed_samples``,
+  ``rerun``; the JAX goodput totals belong to the observability slice).
+  A checkpoint of another stage layout, or of another engine layout
+  (``spmd``, ``stages`` or ``stacked``, read from the saved leaf names:
+  ``runtime/reshard.py``), raises :class:`PlanMismatchError` whether or
+  not the plan is checked strictly (``runtime/reshard.resume_elastic``
+  moves one between the layouts), one of another world
+  :class:`WorldSizeMismatchError`.
 
 Files are written with ``torch.save`` and read with ``torch.load(
 weights_only=True, mmap=True)``, so a load maps the file rather than
@@ -174,10 +180,11 @@ def _plan_fingerprint(hpc) -> Dict[str, Any]:
     return cfg
 
 
-def _layout(plan: Dict[str, Any]) -> Tuple:
-    """What fixes the stage layout a checkpoint's leaves are named by."""
+def _layout(plan: Dict[str, Any], layout: str) -> Tuple:
+    """What fixes the layout a checkpoint's leaves are named by: the
+    plan's stages and the engine's layout of them (``layout``)."""
     return (int(plan.get("pp_deg", 1)), plan.get("pp_division"),
-            int(plan.get("vpp_deg", 1)))
+            int(plan.get("vpp_deg", 1)), layout)
 
 
 class PlanMismatchError(ValueError):
@@ -699,16 +706,6 @@ def load_checkpoint(
         if sw is not None and int(sw) != int(expected_world):
             raise WorldSizeMismatchError(ckpt_dir, int(sw),
                                          int(expected_world), stored_plan)
-    if hpc is not None:
-        stored = meta.get("hybrid_parallel_config")
-        current = _plan_fingerprint(hpc)
-        # another stage layout names other leaves: no restore can take
-        # it, strict or not (re-laying it out is the reshard's work)
-        if stored != current and (strict_plan or (
-                stored is not None and _layout(stored) != _layout(current))):
-            raise PlanMismatchError(
-                f"checkpoint plan mismatch:\nstored  {stored}\n"
-                f"current {current}")
     ppath = os.path.join(ckpt_dir, PARAMS_FILE)
     if not os.path.exists(ppath) and os.path.isdir(
             os.path.join(ckpt_dir, "params")):
@@ -717,6 +714,24 @@ def load_checkpoint(
             "restore it there and cross it over with params_from_jax / "
             "opt_state_from_jax")
     payload = _read_torch(ppath)
+    if hpc is not None:
+        from hetu_galvatron_tpu_torch.runtime.reshard import layout_of_names
+
+        stored = meta.get("hybrid_parallel_config")
+        current = _plan_fingerprint(hpc)
+        here = layout_of_names(_leaf_names(params_target))
+        there = layout_of_names(payload)
+        # another stage or engine layout names other leaves: no restore
+        # can take it, strict or not (re-laying it out is the reshard's
+        # work)
+        if (strict_plan and stored != current) or (
+                stored is not None
+                and _layout(stored, there) != _layout(current, here)):
+            raise PlanMismatchError(
+                f"checkpoint plan mismatch:\nstored  {stored} ({there} "
+                f"layout)\ncurrent {current} ({here} layout); "
+                "runtime/reshard.resume_elastic moves a checkpoint between "
+                "the layouts")
     pairs = _pairs(payload, list(named_leaves(params_target)), PARAMS_FILE)
     opath = os.path.join(ckpt_dir, OPT_FILE)
     opt_state, opt_read = None, False

@@ -8,7 +8,11 @@ The update follows ``make_optimizer``'s chain exactly, step for step:
 2. Adam with bias correction, ``eps`` outside the square root
    (``scale_by_adam``);
 3. decoupled weight decay ``+ wd * p`` on parameters with ``ndim >= 2``
-   (``add_decayed_weights`` with the decay mask);
+   (``add_decayed_weights`` with the decay mask); a caller whose leaves
+   carry leading axes that are not the parameter's own (the compiled
+   pipeline's ``[pp]`` stage axis) passes them to :meth:`AdamW.init`
+   (``lead_axes``), so a stacked bias or norm weight stays undecayed (JAX
+   ``compiled_pipeline._stacked_decay_mask`` :113);
 4. ``* -lr(count)`` with ``count`` starting at 0 (``scale_by_learning_rate``),
    so with warmup the first update is zero.
 
@@ -118,6 +122,9 @@ class AdamState:
     sgd: List[int] = field(default_factory=list)
     mu: List[torch.Tensor] = field(default_factory=list)
     nu: List[torch.Tensor] = field(default_factory=list)
+    # per Adam leaf: takes the weight decay; None decays the ``ndim >= 2``
+    # leaves
+    decay: Optional[List[bool]] = None
 
 
 def leaf_groups(numels: Sequence[int], group_bytes: Optional[int]
@@ -148,14 +155,20 @@ class AdamW:
         self.schedule = make_lr_schedule(train)
 
     def init(self, params: List[torch.Tensor],
-             names: Optional[Sequence[str]] = None) -> AdamState:
+             names: Optional[Sequence[str]] = None,
+             lead_axes: Optional[Sequence[int]] = None) -> AdamState:
         """``names`` (dotted paths, ``builder.named_leaves``) mark the
-        expert-bias leaves; without them every leaf is an Adam leaf."""
+        expert-bias leaves; without them every leaf is an Adam leaf.
+        ``lead_axes`` gives per leaf the leading axes the decay rule does
+        not count (a stacked leaf's ``[pp]``); without it every leaf with
+        ``ndim >= 2`` is decayed."""
         sgd = [i for i, n in enumerate(names or ())
                if n.endswith("expert_bias")]
         adam = sorted(set(range(len(params))) - set(sgd))
+        decay = (None if lead_axes is None else
+                 [params[i].ndim - lead_axes[i] >= 2 for i in adam])
         return AdamState(
-            adam=adam, sgd=sgd,
+            adam=adam, sgd=sgd, decay=decay,
             mu=[torch.zeros_like(params[i], dtype=torch.float32)
                 for i in adam],
             nu=[torch.zeros_like(params[i], dtype=torch.float32)
@@ -196,7 +209,9 @@ class AdamW:
             torch._foreach_add_(denom, self.eps)
             torch._foreach_div_(upd, denom)
             del denom
-            decayed = [i for i, t in enumerate(p) if t.ndim >= 2]
+            decayed = [i for i, t in enumerate(p)
+                       if (t.ndim >= 2 if state.decay is None
+                           else state.decay[group[i]])]
             if self.weight_decay and decayed:
                 torch._foreach_add_([upd[i] for i in decayed],
                                     [p[i] for i in decayed],

@@ -39,6 +39,9 @@ LIFECYCLE = (
     "hetu_galvatron_tpu_torch.observability.telemetry",
     "hetu_galvatron_tpu_torch.observability.trace_analysis",
     "hetu_galvatron_tpu_torch.runtime.pipeline",
+    # the compiled pipeline and the reshard between the engine layouts
+    "hetu_galvatron_tpu_torch.runtime.compiled_pipeline",
+    "hetu_galvatron_tpu_torch.runtime.reshard",
 )
 # the modules of the profile -> search -> train loop; the search side (all
 # but the model profiler and the profiler launcher) imports no torch
