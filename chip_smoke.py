@@ -69,8 +69,9 @@ each of which ends the run with a non-zero exit when it fails:
 8. main path of slice 6, the checkpoint and fault lifecycle, each drill
    through ``python -m hetu_galvatron_tpu_torch.cli.supervise`` (children
    ``cli.train_dist``, each writing its summary line, ``extra.summary_
-   path``): phase 6's config cut to 2 layers (1,556,113,920 parameters,
-   18.67 GB of params, mu and nu a checkpoint) runs 6 steps uninterrupted,
+   path``): phase 6's config cut to 1 layer (1,323,056,128 parameters,
+   15.88 GB of params, mu and nu a checkpoint) runs
+   6 steps uninterrupted,
    then again with a real SIGTERM at step 2 (``rerun.inject_kind=
    preempt``): the child checkpoints step_3 at the boundary and exits 18,
    the relaunch resumes at step 3 and exits 0; the stitched losses, the
@@ -265,6 +266,32 @@ each of which ends the run with a non-zero exit when it fails:
     peak beside the memory doctor's compiled stage peaks summed; the
     recorded ``cost/flops``. ``python3 chip_smoke.py --compiled-only``
     runs phases 1, 2 and 17.
+18. main path of slice 14, layer-wise hybrid plans across ranks: first
+    K1-K3 at the ranks' local shapes (GPT-2 B=4 N=6, B=8 N=3 bf16 and with
+    B=2 N=12 fp32; Qwen tp2 N=14 K=2 on packed rows) and K4/K5 on the Qwen
+    cell's vocab shard (T=8192, V/2 = 76032, labels of the whole
+    vocabulary offset by the shard) against their plain versions, timed beside the library and
+    the bound; then ``cli/train_dist.train`` in each rank of worlds spawned
+    by ``parallel/launch.spawn_world``, the ranks sharing the card over
+    gloo (NCCL puts no two ranks of one communicator on one card): (a)
+    GPT-2 small uncut, W=4, batch 8, seq 1024, 4 steps under dp4 DDP,
+    ZeRO-3 (``sdp`` + ``embed_sdp``), tp4 + vtp4 and a searched-style JSON
+    plan (layers 0-5 tp2 x dp2 ZeRO-2, 6-11 tp4, the vocab layer dp4
+    ZeRO-2), each in fp32, the mixed plan also in bf16; (b)
+    Qwen2.5-7B widths W=2, tp2 + vtp2, fused CE (K4/K5 per vocab shard), full remat,
+    phase 6's packed corpus, seq 4096, batch 2: bf16 at 4 layers and fp32
+    at 1. Gates: exact launches on every rank (GPT-2 12 / 12 / 12 of K1-K3
+    a step; Qwen 2 K1 + 1 K2 + 1 K3 a layer and one K4 and K5 a step); the
+    fp32 runs' losses within 1e-5 relative of a W=1 run of the same weights
+    and batches and their gathered parameters within rtol 5e-4, atol 3e-4
+    of it; DDP replicas bit-identical after every step (an exact
+    fingerprint of the bits); ZeRO-3 ranks holding 1/dp of every 2-D+ leaf;
+    the bf16 runs' step-0 loss gate of phases 5 and 6 and their losses
+    printed beside W=1's; the Qwen ranks' summed peak and what
+    ``nvidia-smi`` sees held under 79 GiB. Printed: the backend and
+    transport, every run's collectives by kind with their bytes, step ms
+    beside the W=1 step, each rank's peak. ``python3 chip_smoke.py
+    --spmd-only`` runs phases 1, 2 and 18.
 
 Each path runs with the launch counters reset just before it and read
 just after, and must launch each of its kernels exactly as often as its
@@ -274,7 +301,8 @@ only the output's end).
 
 The last lines are the serving JSON line (phase 14's numbers and gates),
 the plan JSON line (phase 15's), the pipeline JSON line (phase 16's), the
-compiled JSON line (phase 17's), the kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
+compiled JSON line (phase 17's), the SPMD JSON line (phase 18's), the
+kernels JSON line, the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``. Each kernel's row carries, under
 ``paths``, one block per path that runs it: its launches in that run, per
 training step and in the no-grad evals, beside the kernel, plain, library
@@ -836,17 +864,22 @@ def compare_exact(name: str, got, want):
             "tol": 0.0, "tol_kind": "exact"}
 
 
-def ce_inputs(t, v, dtype, *, ld=None, seed=0, scale=2.0):
+def ce_inputs(t, v, dtype, *, ld=None, seed=0, scale=2.0, shards=1,
+              shard=0):
     """Logits [t, v] (a view of a [t, ld] buffer when ``ld`` > v), labels
     with the first two at -1 and v (out of range: gold 0, no one-hot), the
-    third row all equal, and the backward's per-row a, b."""
+    third row all equal, and the backward's per-row a, b. With ``shards``
+    the logits are vocab shard ``shard`` of ``shards`` and the labels are
+    drawn over the whole vocabulary and offset by the shard, as the
+    vocab-parallel loss feeds them: most fall outside the shard."""
     import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     wide = scale * torch.randn(t, ld or v, device=dev, generator=gen)
     x = wide.to(dtype)[:, :v]
-    labels = torch.randint(0, v, (t,), device=dev, generator=gen)
+    labels = torch.randint(0, v * shards, (t,), device=dev,
+                           generator=gen) - v * shard
     labels[:2] = torch.tensor([-1, v], device=dev)
     x[2] = 1.5
     a = torch.randn(t, device=dev, generator=gen)
@@ -854,14 +887,16 @@ def ce_inputs(t, v, dtype, *, ld=None, seed=0, scale=2.0):
     return x, labels, a, b
 
 
-def check_ce_case(tag, t, v, dtype, *, ld=None, seed=0):
+def check_ce_case(tag, t, v, dtype, *, ld=None, seed=0, shards=1,
+                  shard=0):
     """K4 and K5 against their plain versions on one input set: gold
     bit-equal, lse within 1e-4 absolute, dlogits elementwise."""
     import math
 
     from hetu_galvatron_tpu_torch.ops import cross_entropy as TC
 
-    x, labels, a, b = ce_inputs(t, v, dtype, ld=ld, seed=seed)
+    x, labels, a, b = ce_inputs(t, v, dtype, ld=ld, seed=seed,
+                                shards=shards, shard=shard)
     tol = TOL_FP32 if dtype.itemsize == 4 else TOL_16
     lse, gold = TC.ce_fwd(x, labels)
     lse_p, gold_p = TC.ce_fwd_plain(x, labels)
@@ -1742,7 +1777,9 @@ def check_zoo_kernels(peak_flops, peak_bytes, llama_segs):
 # -- phase 8: checkpoint, resume and the fault lifecycle ---------------------
 
 DRILL_STEPS = 6
-QWEN_DRILL_LAYERS = 2
+# 1 of 28 layers: the drill's checks hold at any depth, and the script's
+# time is shared with phase 18
+QWEN_DRILL_LAYERS = 1
 DRILL_PREEMPT_AT = 2  # the Qwen drill's SIGTERM: step_3 at the boundary
 GPT2_KILL_AT = 3  # the GPT-2 drill's SIGKILL in the save of step_4
 DISK_FACTOR = 2.5  # a committed checkpoint, a torn .tmp and headroom
@@ -5039,6 +5076,548 @@ def comp_blocks(checks, comp, flash):
     return out
 
 
+# -- phase 18: layer-wise hybrid plans across ranks sharing the card --------
+
+SPMD_PHASE = ("phase 18: main path of slice 14 (layer-wise hybrid plans "
+              "across ranks through train_dist, the ranks sharing the card "
+              "over gloo: GPT-2 small W=4 under dp4 DDP, ZeRO-3, tp4 + vtp4 "
+              "and a mixed searched-style plan; Qwen2.5-7B widths W=2 under "
+              "tp2 + vtp2 with fused CE and remat)")
+SPMD_W, SPMD_QWEN_W = 4, 2
+SPMD_STEPS = 4  # steps 0-3 held to the W=1 run
+SPMD_WARMUP = 2  # step ms: the mean of steps 2-3 (CUDA events)
+SPMD_LOSS_RTOL = 1e-5  # fp32 losses against the W=1 run
+SPMD_RTOL, SPMD_ATOL = 5e-4, 3e-4  # gathered parameters (JAX's tolerance)
+# each leaf's change over the steps against the W=1 run's change, in L2
+# norm relative to that change: a lost update on one of d shards reads
+# about sqrt(1/d) (0.5 at d = 4), a leaf never updated 1
+SPMD_CHANGE_RTOL = 0.05
+SPMD_QWEN_FP32_LAYERS = 1  # the Qwen cell's fp32 agreement run
+SPMD_TIMEOUT_S = 600.0
+# torch threads a rank: the host's cores shared by the ranks
+SPMD_THREADS = max(1, (os.cpu_count() or 1) // SPMD_W)
+SPMD_DEVICE = "cuda"
+SPMD_EXTRA = []  # overrides every phase-18 run takes (a CPU dry run's)
+SPMD_GPT2 = "gpt2-small-w4"
+SPMD_QWEN = f"qwen2.5-7b-{QWEN_LAYERS}-layers-w2-tp2-vtp2"
+# GPT-2's plans: GLOBAL overrides, or a plan file written by spmd_paths
+SPMD_PLANS = {
+    "dp4-ddp": [],
+    "zero3": ["parallel.sdp=1", "parallel.embed_sdp=1"],
+    "tp4-vtp4": ["parallel.global_tp_deg=4", "parallel.vocab_tp=4"],
+    "mixed": None,  # layers 0-5 tp2 x dp2 ZeRO-2, 6-11 tp4; vocab dp4 ZeRO-2
+}
+SPMD_BF16_PLANS = ("mixed",)
+
+
+def spmd_mixed_plan(tmp: str, layers: int) -> str:
+    """The searched-style JSON plan of (a): tp2 x dp2 ZeRO-2 on the first
+    half of the layers, tp4 on the rest, the vocab layer over dp4 under
+    ZeRO-2 (``default_dp_type``)."""
+    from hetu_galvatron_tpu_torch.utils.strategy import (
+        DPType,
+        EmbeddingLMHeadStrategy,
+        LayerStrategy,
+        save_strategy_config,
+        strategy_list2config,
+    )
+
+    half = layers // 2
+    # dp 1 makes the tp4 layers' dp type moot; the plan's default is zero2
+    strategies = (
+        [LayerStrategy(pp_deg=1, tp_size=2, dp_size=2,
+                       dp_type=DPType.ZERO2)] * half
+        + [LayerStrategy(pp_deg=1, tp_size=4, dp_size=1,
+                         dp_type=DPType.ZERO2)] * (layers - half))
+    cfg = strategy_list2config(strategies, global_bsz=B, chunks=1,
+                               default_dp_type="zero2",
+                               vocab=EmbeddingLMHeadStrategy())
+    path = os.path.join(tmp, "galvatron_config_gpt2_mixed_w4.json")
+    save_strategy_config(path, cfg)
+    return path
+
+
+def _bits_sum(params) -> int:
+    """An exact fingerprint of a tree on the device: the sum of its fp32
+    bit patterns as integers (two replicas that differ in any bit differ
+    here unless the differences cancel)."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.models.builder import named_leaves
+
+    total = None
+    for _, t in named_leaves(params):
+        s = t.detach().contiguous().view(torch.int32).to(torch.int64).sum()
+        total = s if total is None else total + s
+    return int(total)
+
+
+def spmd_child(rank, world, jobs):
+    """One rank of phase 18's world: each job one ``train`` run with the
+    launch and collective counters reset just before it and read just
+    after; per step the replicas' fingerprint, taken in ``on_step`` after
+    the step's time was taken; after the steps the gathered parameters
+    against the W=1 run's (rank 0), each leaf's change against the W=1
+    run's change, and each leaf's share of its full size."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.models.builder import named_leaves
+    from hetu_galvatron_tpu_torch.ops import _build
+    from hetu_galvatron_tpu_torch.parallel import comm
+    from hetu_galvatron_tpu_torch.parallel.spmd import SpmdEngine
+
+    fingerprints, held = [], {}
+    update = SpmdEngine.apply_update
+
+    def holding(self, params, *a):
+        held["params"] = params  # the leaves the update writes in place
+        update(self, params, *a)
+
+    def fingerprint(it, metrics):
+        fingerprints.append(_bits_sum(held["params"]))
+
+    SpmdEngine.apply_update = holding
+    out_jobs = []
+    for job in jobs:
+        # the job carries every override (a child imports this module
+        # afresh, without a dry run's settings)
+        args = load_config(job["yaml"], job["over"])
+        cuda = args.device == "cuda"
+        fingerprints.clear()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        comm.reset_counts()
+        t0 = time.perf_counter()
+        out = train(args, on_step=fingerprint)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        collectives = comm.counts_by_kind()
+        eng, local = out["engine"], out["params"]
+        res = dict(tag=job["tag"], losses=out["losses"],
+                   step_ms=out["iter_ms"], wall_s=wall, launches=launches,
+                   collectives=collectives, fingerprints=list(fingerprints),
+                   backend=comm.transport(eng.device.type),
+                   peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else 0.0),
+                   plan=eng.hpc.describe())
+        if rank == 0 and cuda:
+            res["smi_used_mib"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30).stdout.strip()
+        if job.get("ref"):
+            # a collective: every rank gathers
+            full = eng.gather_params(local)
+            res["shares"] = {
+                name: (t.numel() * t.element_size(),
+                       f.numel() * f.element_size(), f.dim())
+                for (name, t), (_, f) in zip(named_leaves(local),
+                                             named_leaves(full))}
+            if rank == 0:
+                saved = torch.load(job["ref"], map_location="cpu",
+                                   mmap=True)
+                ref, moved = saved["params"], saved["change_norm"]
+                worst, err, change = 0.0, 0.0, (0.0, "")
+                for name, t in named_leaves(full):
+                    b = ref[name].to(t.device).float()
+                    diff = (t.detach().float() - b).abs()
+                    err = max(err, float(diff.max()))
+                    worst = max(worst, float((diff / (
+                        SPMD_ATOL + SPMD_RTOL * b.abs())).max()))
+                    # both runs start from the same weights, so the changes
+                    # differ by the final parameters' difference
+                    d = float(diff.double().norm())
+                    rel = (d / moved[name] if moved[name] > 0
+                           else (0.0 if d == 0 else math.inf))
+                    change = max(change, (rel, name))
+                res.update(param_max_abs_err=err,
+                           param_worst_over_limit=worst,
+                           change_worst_rel=change[0],
+                           change_worst_leaf=change[1])
+            del full
+        del out, eng, local
+        res["job_s"] = time.perf_counter() - t0
+        out_jobs.append(res)
+    SpmdEngine.apply_update = update
+    return out_jobs
+
+
+def spmd_reference(tag, yaml, over, ref_path=None):
+    """The W=1 run of a cell (same weights, same global batches): its
+    losses and step ms; with ``ref_path`` its final parameters saved there
+    for the ranks' comparison, with each leaf's change over the steps (L2
+    norm of final minus the initial weights ``train`` built)."""
+    import torch
+
+    from hetu_galvatron_tpu_torch.cli.train_dist import train
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.models import builder
+
+    args = load_config(yaml, over + SPMD_EXTRA)
+    if SPMD_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    first, init = {}, builder.init_causal_lm
+
+    def recorded(*a, **k):  # a host copy: the W=1 peak stays the run's
+        params = init(*a, **k)
+        first.update((n, t.detach().cpu().clone())
+                     for n, t in builder.named_leaves(params))
+        return params
+
+    if ref_path:
+        builder.init_causal_lm = recorded
+    try:
+        out = train(args)
+    finally:
+        builder.init_causal_lm = init
+    res = dict(losses=out["losses"], step_ms=out["iter_ms"],
+               peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if SPMD_DEVICE == "cuda" else 0.0))
+    if ref_path:
+        final = {n: t.detach().cpu() for n, t in
+                 builder.named_leaves(out["params"])}
+        change = {n: float((t.double() - first[n].double()).norm())
+                  for n, t in final.items()}
+        torch.save(dict(params=final, change_norm=change), ref_path)
+    del out
+    log(f"  {tag} at W=1: losses {res['losses']}; step {res['step_ms']:.2f} "
+        f"ms; peak {res['peak_gib']:.2f} GiB")
+    return res
+
+
+def spmd_gates(tag, runs, ref, *, fp32, want_per_step, want_eval=None,
+               expect0=None, plan_kind=""):
+    """Phase 18's gates on one job's ranks: exact launches on every rank,
+    finite losses equal on every rank, the fp32 agreement with the W=1
+    run (losses within 1e-5 relative, gathered parameters within rtol 5e-4,
+    atol 3e-4, and each leaf's change within 5% of the W=1 run's change in
+    L2 norm), bit-identical DDP replicas after every step, ZeRO-3's 1/dp
+    of every 2-D+ leaf; bf16 runs print the comparison and take the W=1
+    path's step-0 loss gate."""
+    r0 = runs[0]
+    losses = r0["losses"]
+    if len(losses) != SPMD_STEPS or not all(map(math.isfinite, losses)):
+        raise SmokeFailure(f"{tag}: losses {losses} not {SPMD_STEPS} finite")
+    for r in runs:
+        if r["losses"] != losses:
+            raise SmokeFailure(f"{tag}: the ranks report different losses")
+    want = {k: v * SPMD_STEPS + (want_eval or {}).get(k, 0)
+            for k, v in want_per_step.items()}
+    for i, r in enumerate(runs):
+        if r["launches"] != want:
+            raise SmokeFailure(f"{tag}: rank {i} launches {r['launches']}, "
+                               f"want {want}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    log(f"  {tag}: losses {losses} against W=1 {ref['losses'][:SPMD_STEPS]}"
+        f": relative " + ", ".join(f"{x:.2e}" for x in rel)
+        + (f" (gate {SPMD_LOSS_RTOL})" if fp32 else " (printed)"))
+    gates = {"loss_rel": rel}
+    if fp32:
+        if max(rel) > SPMD_LOSS_RTOL:
+            raise SmokeFailure(f"{tag}: fp32 losses depart from the W=1 run "
+                               f"by {max(rel):.3e}")
+        w = r0["param_worst_over_limit"]
+        log(f"  {tag}: gathered parameters against W=1: max abs "
+            f"{r0['param_max_abs_err']:.3e}, worst |d| / (atol + rtol |ref|)"
+            f" {w:.3f} (gate 1)")
+        if w > 1.0:
+            raise SmokeFailure(f"{tag}: gathered parameters depart from the "
+                               f"W=1 run ({w:.3f} of the tolerance)")
+        gates["param_worst_over_limit"] = w
+        c, leaf = r0["change_worst_rel"], r0["change_worst_leaf"]
+        log(f"  {tag}: each leaf's change against W=1's change: worst "
+            f"|d|_2 / |change|_2 {c:.3e} ({leaf}) (gate {SPMD_CHANGE_RTOL})")
+        if c > SPMD_CHANGE_RTOL:
+            raise SmokeFailure(f"{tag}: leaf {leaf} changed unlike the W=1 "
+                               f"run ({c:.3e} of its change)")
+        gates["change_worst_rel"] = c
+    if expect0 is not None:
+        log(f"  {tag}: step-0 loss {losses[0]:.4f} against {expect0:.4f} "
+            "(gate 0.5)")
+        if abs(losses[0] - expect0) > 0.5:
+            raise SmokeFailure(f"{tag}: step-0 loss {losses[0]:.4f} is not "
+                               f"within 0.5 of {expect0:.4f}")
+    if plan_kind == "ddp":
+        fps = [r["fingerprints"] for r in runs]
+        same = all(f == fps[0] for f in fps) and len(fps[0]) == SPMD_STEPS
+        log(f"  {tag}: replicas' fingerprints after each step "
+            f"{fps[0]}: {'bit-identical' if same else 'DIFFER'} on "
+            f"{len(runs)} ranks")
+        if not same:
+            raise SmokeFailure(f"{tag}: DDP replicas differ: {fps}")
+        gates["replicas_bit_identical"] = True
+    if plan_kind == "zero3" and "shares" in runs[0]:
+        dp = len(runs)
+        bad = {n: (loc, whole) for n, (loc, whole, nd) in
+               runs[0]["shares"].items() if nd >= 2 and loc * dp != whole}
+        held = sum(loc for loc, whole, nd in runs[0]["shares"].values()
+                   if nd >= 2)
+        whole = sum(w for _, w, nd in runs[0]["shares"].values() if nd >= 2)
+        log(f"  {tag}: rank 0 holds {held} of {whole} bytes of the 2-D+ "
+            f"leaves ({held / whole:.4f}; want 1/{dp} of each)")
+        if bad:
+            raise SmokeFailure(f"{tag}: ZeRO-3 leaves not split 1/{dp}: "
+                               f"{bad}")
+        gates["zero3_share"] = held / whole
+    peaks = [r["peak_gib"] for r in runs]
+    log(f"  {tag}: run {r0['job_s']:.1f} s; step {r0['step_ms']:.2f} ms "
+        f"against W=1 "
+        f"{ref['step_ms']:.2f} ms (steps {SPMD_WARMUP}-{SPMD_STEPS - 1}); "
+        f"peaks {['%.2f' % p for p in peaks]} GiB, sum {sum(peaks):.2f} "
+        f"GiB; nvidia-smi used {r0.get('smi_used_mib')} MiB; collectives "
+        f"{r0['collectives']}; transport {r0['backend']}")
+    return dict(plan=r0["plan"], losses=losses, w1_losses=ref["losses"],
+                step_ms=r0["step_ms"], w1_step_ms=ref["step_ms"],
+                peaks_gib=peaks, peak_sum_gib=sum(peaks),
+                smi_used_mib=r0.get("smi_used_mib"),
+                launches=r0["launches"], launches_per_step=want_per_step,
+                eval_launches={k: (want_eval or {}).get(k, 0)
+                               for k in want_per_step},
+                collectives=r0["collectives"], transport=r0["backend"],
+                wall_s=r0["wall_s"], gates=gates)
+
+
+def spmd_release():
+    """Give the card back before the ranks start: this process's cached
+    blocks would count against theirs (and in nvidia-smi's reading)."""
+    import torch
+
+    gc.collect()
+    if SPMD_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def spmd_common(steps=SPMD_STEPS):
+    return [f"train.train_iters={steps}", "profile.profile=1",
+            f"profile.profile_warmup={SPMD_WARMUP}", "train.eval_interval=0",
+            f"device={SPMD_DEVICE}"]
+
+
+def spmd_gpt2(smi, tmp):
+    """(a): GPT-2 small uncut, W=4, batch 8, seq 1024, four plans in fp32
+    (the agreement) and bf16, one world for all eight runs."""
+    from hetu_galvatron_tpu_torch.parallel.launch import spawn_world
+
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+
+    cfg = load_config(GPT2_YAML, SPMD_EXTRA).model
+    plans = dict(SPMD_PLANS)
+    plans["mixed"] = [
+        "parallel.config_mode=json",
+        f"parallel.galvatron_config_path="
+        f"{spmd_mixed_plan(tmp, cfg.num_hidden_layers)}"]
+    base = [f"parallel.global_train_batch_size={B}"] + spmd_common()
+    refs = {}
+    for dtype in ("fp32", "bf16"):
+        path = os.path.join(tmp, "gpt2_w1.pt") if dtype == "fp32" else None
+        refs[dtype] = spmd_reference(
+            f"gpt2 {dtype}", GPT2_YAML,
+            base + [f"parallel.mixed_precision={dtype}"], path)
+        refs[dtype]["path"] = path
+    # fp32 for the agreement under every plan; bf16 for the loss gate and
+    # the kernels' shapes under the mixed plan (its tp2 x dp2 layers' shape
+    # and its tp4 layers', tp4-vtp4's)
+    jobs = [dict(tag=f"{name} {dtype}", yaml=GPT2_YAML,
+                 over=base + over + [f"parallel.mixed_precision={dtype}"]
+                 + SPMD_EXTRA, ref=refs[dtype]["path"])
+            for dtype in ("fp32", "bf16") for name, over in plans.items()
+            if dtype == "fp32" or name in SPMD_BF16_PLANS]
+    spmd_release()
+    t0 = time.perf_counter()
+    ranks = spawn_world(spmd_child, SPMD_W, jobs, device=SPMD_DEVICE,
+                        timeout=SPMD_TIMEOUT_S, threads=SPMD_THREADS)
+    log(f"  GPT-2 world of {SPMD_W}: {len(jobs)} runs in "
+        f"{time.perf_counter() - t0:.1f} s (process start included)")
+    L = cfg.num_hidden_layers
+    per_step = {"flash_fwd": L, "flash_bwd_dkdv": L, "flash_bwd_dq": L,
+                "ce_fwd": 0, "ce_bwd": 0}
+    out = {}
+    for j, job in enumerate(jobs):
+        name, dtype = job["tag"].split()
+        runs = [r[j] for r in ranks]
+        out[job["tag"]] = spmd_gates(
+            f"gpt2 {job['tag']}", runs, refs[dtype], fp32=dtype == "fp32",
+            want_per_step=per_step,
+            expect0=(math.log(cfg.padded_vocab_size) if dtype == "bf16"
+                     else None),
+            plan_kind={"dp4-ddp": "ddp", "zero3": "zero3"}.get(name, ""))
+    return out
+
+
+def spmd_qwen(smi, tmp, prefix):
+    """(b): Qwen2.5-7B widths, W=2, tp2 + vtp2, fused CE (K4/K5 per vocab
+    shard), full remat, phase 6's packed corpus, seq 4096, batch 2: bf16
+    at phase 6's depth and an fp32 agreement run at fewer layers."""
+    from hetu_galvatron_tpu_torch.core.arguments import load_config
+    from hetu_galvatron_tpu_torch.data.synthetic import packed_corpus_overrides
+    from hetu_galvatron_tpu_torch.parallel.launch import spawn_world
+
+    plan = ["parallel.global_tp_deg=2", "parallel.vocab_tp=2"]
+    base = ["model.use_fused_ce=true", "parallel.global_checkpoint=1",
+            f"parallel.global_train_batch_size={QB}",
+            *packed_corpus_overrides(prefix)] + spmd_common()
+    runs_over = {
+        "bf16": base + [f"model.num_hidden_layers={QWEN_LAYERS}",
+                        "parallel.mixed_precision=bf16"],
+        "fp32": base + [f"model.num_hidden_layers={SPMD_QWEN_FP32_LAYERS}",
+                        "parallel.mixed_precision=fp32"]}
+    refs = {}
+    for dtype, over in runs_over.items():
+        path = os.path.join(tmp, "qwen_w1.pt") if dtype == "fp32" else None
+        refs[dtype] = spmd_reference(f"qwen {dtype}", QWEN_YAML, over, path)
+        refs[dtype]["path"] = path
+    jobs = [dict(tag=dtype, yaml=QWEN_YAML, over=over + plan + SPMD_EXTRA,
+                 ref=refs[dtype]["path"]) for dtype, over in runs_over.items()]
+    spmd_release()
+    t0 = time.perf_counter()
+    ranks = spawn_world(spmd_child, SPMD_QWEN_W, jobs, device=SPMD_DEVICE,
+                        timeout=SPMD_TIMEOUT_S, threads=SPMD_THREADS)
+    log(f"  Qwen world of {SPMD_QWEN_W}: {len(jobs)} runs in "
+        f"{time.perf_counter() - t0:.1f} s (process start included)")
+    out = {}
+    for j, job in enumerate(jobs):
+        dtype = job["tag"]
+        cfg = load_config(QWEN_YAML, job["over"]).model
+        L = cfg.num_hidden_layers
+        # remat runs K1 twice a layer; K4 / K5 once a step on each rank
+        # (no evaluation: train.eval_interval=0)
+        per_step = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L,
+                    "flash_bwd_dq": L, "ce_fwd": 1, "ce_bwd": 1}
+        runs = [r[j] for r in ranks]
+        expect0 = (math.log(cfg.padded_vocab_size)
+                   + 0.5 * 0.02 ** 2 * cfg.hidden_size)
+        out[dtype] = spmd_gates(
+            f"qwen {L}-layer {dtype}", runs, refs[dtype],
+            fp32=dtype == "fp32", want_per_step=per_step,
+            expect0=expect0 if dtype == "bf16" else None)
+        out[dtype]["layers"] = L
+        # the ranks' summed peak, and what nvidia-smi sees held after the
+        # run (every process's context and cached blocks, this one's too)
+        summed = out[dtype]["peak_sum_gib"]
+        held = (float(out[dtype]["smi_used_mib"]) / 1024
+                if out[dtype]["smi_used_mib"] else 0.0)
+        log(f"  qwen {dtype}: summed peak {summed:.2f} GiB, nvidia-smi "
+            f"used {held:.2f} GiB after the run (gate {MEM_LIMIT_GIB} each)")
+        if max(summed, held) >= MEM_LIMIT_GIB:
+            raise SmokeFailure(f"qwen {dtype}: {summed:.2f} GiB summed peak "
+                               f"/ {held:.2f} GiB held is not under "
+                               f"{MEM_LIMIT_GIB} GiB")
+    return out
+
+
+def check_spmd_kernels(checks, peak_flops, peak_bytes):
+    """K1-K3 at the local shapes phase 18's ranks give them: checked and
+    timed beside the library in bf16 (the mixed plan's bf16 run: tp2 x
+    dp2's B=4 N=6 and tp4's B=8 N=3; Qwen tp2: N=14 K=2 on the packed
+    rows), checked in fp32 at the fp32 runs' (dp4 and ZeRO-3's B=2 N=12,
+    tp2 x dp2's, tp4's); K4/K5 on the Qwen cell's vocab shard (T=8192,
+    V/2 = 76032 columns, labels of the whole vocabulary offset by the
+    second shard, so most fall outside it). Each against its plain
+    version; the records join ``checks``."""
+    import torch
+
+    flash = {}
+    for b, n in ((4, N // 2), (8, N // 4)):
+        flash[f"gpt2 B={b} N={n}"] = check_path_flash(
+            "SPMD GPT-2 local shape", f"spmd gpt2 B={b} N=K={n} S={S} D={D} "
+            "bf16 causal", (b, n, n, S, D), False, peak_flops, peak_bytes)
+    for b, n in ((2, N), (4, N // 2), (8, N // 4)):
+        tag = f"spmd gpt2 B={b} N=K={n} S={S} D={D} fp32 causal"
+        res, _ = check_case(tag, b=b, n=n, kv=n, s=S, sk=S, d=D,
+                            dtype=torch.float32, causal=True, seg=False,
+                            rate=0.0, layout="fused")
+        for k, recs in res.items():
+            checks[k] += [dict(r, case=tag) for r in recs]
+    flash["qwen tp2"] = check_path_flash(
+        "SPMD Qwen tp2 local shape", f"spmd qwen B={QB} N={QN // 2} "
+        f"K={QK // 2} S={QS} D={QD} bf16 seg", (QB, QN // 2, QK // 2, QS, QD),
+        True, peak_flops, peak_bytes)
+    for res in flash.values():
+        for k, recs in res["checks"].items():
+            checks[k] += recs
+    vl = QV // 2
+    tag = f"spmd qwen shard 1/2 T={QT} V={vl} fp32"
+    res, inputs = check_ce_case(tag, QT, vl, torch.float32, seed=13,
+                                shards=2, shard=1)
+    for k, recs in res.items():
+        checks[k] += [dict(r, case=tag) for r in recs]
+    times, lib = time_ce(inputs)
+    del inputs
+    bnd = ce_bounds(QT, vl, 4, peak_bytes, 67e12)
+    log_times(f"T={QT} V={vl} vocab shard", times, lib, bnd)
+    ce = {k: dict(ms=times[k][0], plain_ms=times[k][1], library_ms=lib[k],
+                  bound_ms=bnd[k]["bound_ms"], bound_by=bnd[k]["bound_by"],
+                  flops=bnd[k]["flops"], bytes=bnd[k]["bytes"], shape=tag)
+          for k in times}
+    torch.cuda.empty_cache()
+    return flash, ce
+
+
+def spmd_paths(smi: str, checks, peak_flops, peak_bytes):
+    """Phase 18: the kernels at the ranks' local shapes, then (a) and (b)
+    in a temporary directory removed at exit; returns the runs' record and
+    the kernels' checks and times."""
+    import torch
+
+    t0 = time.perf_counter()
+    kernels = check_spmd_kernels(checks, peak_flops, peak_bytes)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as tmp:
+        out = {SPMD_GPT2: spmd_gpt2(smi, tmp)}
+        torch.cuda.empty_cache()
+        prefix = write_qwen_corpus(tmp)[0]
+        out[SPMD_QWEN] = spmd_qwen(smi, tmp, prefix)
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    out["device"] = smi
+    log(f"  phase 18 in {out['wall_s']:.1f} s [{smi}]")
+    return out, kernels
+
+
+def spmd_blocks(checks, spmd, kernels):
+    """Phase 18's blocks per kernel: the launches of each rank of a run
+    beside the checks and times at that run's local shape (GPT-2's bf16
+    runs: K1-K3 at the plan's first layer's shape; the Qwen cell's: K1-K3
+    at tp2's heads, K4/K5 on its vocab shard)."""
+    flash, ce = kernels
+    # the bf16 run: the mixed plan at its tp2 x dp2 layers' shape, its tp4
+    # layers' under by_shape
+    shapes = {"mixed": "gpt2 B=4 N=6"}
+
+    def block(k, run, timing, case):
+        out = path_block(k, run, timing, max_err(checks, k, case),
+                         timing["shape"])
+        out["launches_per_rank"] = out["launches"]
+        return out
+
+    out = {}
+    for k in KERNELS:
+        out[k] = {}
+        if k in FLASH:
+            for name, key in shapes.items():
+                timing = flash[key]["timing"][k]
+                out[k][f"{SPMD_GPT2}-{name}"] = block(
+                    k, spmd[SPMD_GPT2][f"{name} bf16"], timing,
+                    timing["shape"])
+                out[k][f"{SPMD_GPT2}-{name}"]["by_shape"] = {
+                    key: block(k, spmd[SPMD_GPT2][f"{name} bf16"],
+                               flash[key]["timing"][k],
+                               flash[key]["timing"][k]["shape"])
+                    for key in ("gpt2 B=4 N=6", "gpt2 B=8 N=3")}
+            timing = flash["qwen tp2"]["timing"][k]
+        else:
+            timing = ce[k]
+        out[k][SPMD_QWEN] = block(k, spmd[SPMD_QWEN]["bf16"], timing,
+                                  timing["shape"])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5063,7 +5642,7 @@ def main() -> int:
 
 
 def run(torch, _build, TF) -> int:
-    """Phases 1-17 (or the subset a flag names) on the card."""
+    """Phases 1-18 (or the subset a flag names) on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
@@ -5132,6 +5711,18 @@ def run(torch, _build, TF) -> int:
         log(json.dumps({"compiled": comp}))
         log(json.dumps({"compiled_kernels": comp_blocks(checks, comp,
                                                         comp_flash)}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:] == ["--spmd-only"]:
+        phase(SPMD_PHASE)
+        checks = {k: [] for k in KERNELS}
+        spmd, spmd_k = spmd_paths(smi, checks, peak_flops, peak_bytes)
+        log(f"\ndone in {time.perf_counter() - t_all:.1f} s")
+        log(json.dumps({"spmd": spmd}))
+        log(json.dumps({"spmd_kernels": spmd_blocks(checks, spmd, spmd_k)}))
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -5337,6 +5928,9 @@ def run(torch, _build, TF) -> int:
     torch.cuda.empty_cache()
     phase(COMP_PHASE)
     comp, comp_flash = comp_paths(smi, checks, peak_flops, peak_bytes)
+    torch.cuda.empty_cache()
+    phase(SPMD_PHASE)
+    spmd, spmd_k = spmd_paths(smi, checks, peak_flops, peak_bytes)
 
     # one block per path that runs the kernel: its launches beside the
     # times measured at that path's shape
@@ -5407,6 +6001,9 @@ def run(torch, _build, TF) -> int:
     for k in ("ce_fwd", "ce_bwd"):
         earlier[k][COMP_QWEN] = qwen_block(k, comp[COMP_QWEN], checks,
                                            qwen_flash, ce)
+    # phase 18: each kernel at its ranks' local shapes
+    for k, blocks in spmd_blocks(checks, spmd, spmd_k).items():
+        earlier[k].update(blocks)
     rows = kernel_rows(checks, zoo_k, zoo, earlier)
     rows[0]["autograd_checks"] = auto
     rows[3]["autograd_checks"] = ce["zloss"]
@@ -5417,6 +6014,7 @@ def run(torch, _build, TF) -> int:
     log(json.dumps({"plan": plan}))
     log(json.dumps({"pipeline": pipe}))
     log(json.dumps({"compiled": comp}))
+    log(json.dumps({"spmd": spmd}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -30,8 +30,9 @@ intent, over what the port writes instead:
   ``os.environ.get`` and ``os.getenv`` anywhere but
   ``core/args_schema.py`` and ``cli/`` (JAX's rule as it is).
 
-GAL003 (mesh-axis literals) has nothing to check until the port has
-process groups (ROADMAP item 10).
+GAL003 (mesh-axis literals) waits for ROADMAP item 10b: the port's process
+groups are built from ``runtime/mesh.py``'s axis tuples, and the rule's
+canon is to be their names.
 
 The committed baseline (``analysis/lint_baseline.json``: fingerprint ->
 one-line justification) lists the accepted findings. The gate fails on a

@@ -15,11 +15,12 @@ than one device are diagnosed exactly as JAX diagnoses them: the doctor
 reads the plan, not the runtime.
 
 The one difference from JAX's report: where the port's runtime refuses
-the plan today (``runtime/hybrid_config.py::check_plan_width``: a stage
-wider than one rank, ``hier_dp``, or a world other than ``pp_deg``), the
-report adds one warning that quotes the refusal and
-its ROADMAP item, so the doctor never tells a user that the port runs a
-plan it refuses.
+the plan today (``runtime/hybrid_config.py::check_plan_width``: cp,
+Ulysses or ep layers, a pipeline stage wider than one rank or a world
+other than ``pp_deg`` under pp, ``hier_dp``), the report adds one warning
+that quotes the refusal and its ROADMAP item, so the doctor never tells a
+user that the port runs a plan it refuses. pp=1 plans of tp, dp and ZeRO
+over any world get none: ``parallel/spmd.py`` runs them.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ CPU with no card and no training step:
 
 ``--census`` and ``--flow`` (Passes 2 and 5) read JAX programs; their torch
 counterparts are ROADMAP item 16b. ``--calibration`` (Pass 6) checks the
-calibration loop, ROADMAP item 10. Each exits 2 naming its item, and
+calibration loop, ROADMAP item 10b. Each exits 2 naming its item, and
 ``--all`` lists them as not ported, never as passed.
 
 Exit code 0 = clean, 1 = findings/errors, 2 = usage, as in JAX.
@@ -50,7 +50,7 @@ NOT_PORTED = {
               "counterpart is ROADMAP item 16b",
     "flow": "the sharding-flow byte census reads JAX programs; its torch "
             "counterpart is ROADMAP item 16b",
-    "calibration": "the calibration loop it checks is ROADMAP item 10",
+    "calibration": "the calibration loop it checks is ROADMAP item 10b",
 }
 
 

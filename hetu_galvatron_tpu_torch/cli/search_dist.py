@@ -12,7 +12,7 @@ arithmetic: it needs no device.
 
 Not ported: the calibration feed (``feed_calibrated_profile`` raises when
 ``observability.calibration_dir`` is set with ``search.use_calibrated``:
-the calibration loop is ROADMAP item 10), and the elastic re-plan of a
+the calibration loop is ROADMAP item 10b), and the elastic re-plan of a
 resume on another world size (``replan_for_world`` and
 ``_adapt_degrees``: the elastic path, ROADMAP item 15).
 """
@@ -38,7 +38,7 @@ def feed_calibrated_profile(args, world: int,
     raise NotImplementedError(
         f"observability.calibration_dir={cal_dir} with "
         "search.use_calibrated=1: the calibration loop is not ported yet "
-        "(ROADMAP item 10); set search.use_calibrated=0 to search on the "
+        "(ROADMAP item 10b); set search.use_calibrated=0 to search on the "
         "profiled files")
 
 

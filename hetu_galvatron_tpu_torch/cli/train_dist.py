@@ -43,6 +43,20 @@ device raises by name). The run logs the plan's ``describe()`` and, at
 the end, its ``predicted_time_cost_ms`` beside the measured step time
 (``profile.profile=1``); ``train()`` returns the prediction too.
 
+Under ``python -m torch.distributed.run --nproc_per_node W -m
+hetu_galvatron_tpu_torch.cli.train_dist <yaml> ...`` (or
+``parallel/launch.spawn_world``) each process runs one rank of a pp=1
+plan over W ranks, in GLOBAL or JSON mode (JAX's pp=1 SPMD branch):
+``runtime/initialize.py`` joins the process group (nccl where every rank
+has a card, gloo where ranks share one), every rank builds the model from
+the seed and keeps its slices, and ``parallel/spmd.SpmdEngine`` runs the
+step under the plan's per-layer DP / ZeRO-2 / ZeRO-3 / Megatron TP+SP and
+vocab TP, with the flash kernels on each rank's heads and the
+vocab-parallel K4/K5. Rank 0 logs and writes the telemetry stream (the
+global loss and tokens/s); the other ranks stay quiet. Saving, resuming
+and the supervisor's restarts at a world above 1 are ROADMAP item 15b and
+raise by name.
+
 The checkpoint and fault lifecycle (JAX ``cli/train_dist.py:391-760`` and
 ``main`` :1039-1060):
 
@@ -127,8 +141,18 @@ import numpy as np
 
 def unsupported_flags(args) -> list:
     """Names of the set flags this slice of the port does not run."""
+    from hetu_galvatron_tpu_torch.core.args_schema import launch_env
+
     obs = args.observability
+    wide = (launch_env() or {}).get("world_size", 1) > 1
     flags = {
+        # the lifecycle of a multi-process run is ROADMAP item 15b
+        "ckpt.save (world above 1, ROADMAP item 15b)":
+            wide and bool(args.ckpt.save),
+        "ckpt.load (world above 1, ROADMAP item 15b)":
+            wide and bool(args.ckpt.load),
+        "supervisor.auto_restart (world above 1, ROADMAP item 15b)":
+            wide and args.supervisor.auto_restart,
         "ckpt.load_format": args.ckpt.load_format == "hf",
         "tp_overlap.enable": args.tp_overlap.enable,
         "parallel.hier_dp": args.parallel.hier_dp,
@@ -151,9 +175,9 @@ def check_flags(args) -> None:
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not ported to hetu_galvatron_tpu_torch yet "
-            "(this slice runs single-device and one-rank-a-stage pipeline "
-            "training with the batch-size ramp, checkpoints, the fault "
-            "lifecycle and observability)")
+            "(this slice runs single-device, one-rank-a-stage pipeline and "
+            "pp=1 SPMD training with the batch-size ramp, checkpoints, the "
+            "fault lifecycle and observability)")
 
 
 def _concat(mbs):
@@ -251,6 +275,8 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
     hpc = get_hybrid_parallel_config(args, state.world_size)
     state.log(f"parallel plan: {hpc.describe()}")
     pipe = hpc.pp_deg > 1
+    spmd = state.distributed
+    lead = state.rank == 0  # the rank that logs and writes the streams
 
     cfg = args.model
     params = init_causal_lm(cfg, seed=args.train.seed, device=device)
@@ -288,7 +314,7 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
     # and the derived throughput/MFU land in one file
     prev_registry = get_registry()
     telemetry = None
-    if args.observability.enabled:
+    if args.observability.enabled and lead:
         from hetu_galvatron_tpu_torch.observability.telemetry import (
             emit_plan_telemetry,
         )
@@ -298,16 +324,21 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         telemetry = make_telemetry(
             args, world_size=len(set(state.devices)),
             global_batch_size=hpc.global_bsz)
-        emit_plan_telemetry(
-            telemetry.registry, hpc, cfg,
-            mixed_precision=args.parallel.mixed_precision != "fp32")
+        if spmd:
+            state.log("telemetry: no plan event (the predicted collective "
+                      "volume of a plan over several ranks is ROADMAP item "
+                      "10b)")
+        else:
+            emit_plan_telemetry(
+                telemetry.registry, hpc, cfg,
+                mixed_precision=args.parallel.mixed_precision != "fp32")
         if telemetry.peak_flops:
             state.log(f"telemetry: MFU against "
                       f"{telemetry.peak_flops / 1e12:.0f} TFLOP/s")
     # crash forensics: flight_<ts>.json on crash / trapped signal / rerun
     # halt, in observability.flight_dir or next to the metrics stream
     recorder = None
-    if telemetry is not None or args.observability.flight_dir:
+    if lead and (telemetry is not None or args.observability.flight_dir):
         from hetu_galvatron_tpu_torch.observability.recorder import (
             FlightRecorder,
             flight_dir_of,
@@ -357,7 +388,36 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
             + ("through the flash kernels (CUDA K1-K3)"
                if engine.stages[0].attn else "through the plain core")
             + "; the head stage runs the plain cross-entropy")
-    if pipe:
+    if spmd:
+        from hetu_galvatron_tpu_torch.parallel import comm
+        from hetu_galvatron_tpu_torch.parallel.spmd import SpmdEngine
+
+        engine = SpmdEngine(cfg, hpc, args.train, state.rank, device,
+                            compute_dtype=compute_dtype)
+        # every rank built the whole model from the seed; it keeps its
+        # slices
+        params = engine.shard_params(params)
+        opt_state = engine.init_opt(params)
+        tx = engine.tx
+        state.log(
+            f"SPMD step over {hpc.world_size} ranks, "
+            f"{comm.transport(device.type)}: attention through "
+            + ("the flash kernels (CUDA K1-K3) on each rank's heads"
+               if engine.flash else "the plain core")
+            + ("; vocab-parallel cross-entropy over vtp "
+               f"{engine.vtp}" if engine.vtp > 1 else "")
+            + (" (CUDA K4/K5 per shard)" if cfg.use_fused_ce
+               and device.type == "cuda" else ""))
+
+        def forward_backward_for(chunks):
+            return lambda p, b: engine.forward_backward(p, b, chunks)
+
+        def apply_update(grads, metrics):
+            engine.apply_update(params, opt_state, grads, metrics)
+
+        def eval_loss(batch):
+            return engine.eval_loss(params, batch)
+    elif pipe:
         # the stage trees (or the stacked tree) take over the model's
         # leaves; from here the run's state is the engine's layout
         params = engine.split_params(params)
@@ -413,7 +473,7 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
         def eval_loss(batch):
             with torch.no_grad():
                 return float(loss_fn(params, batch))
-    profiler = RuntimeProfiler(args, device=device)
+    profiler = RuntimeProfiler(args, device=device, rank=state.rank)
     use_dropout = cfg.hidden_dropout > 0.0 or cfg.attention_dropout > 0.0
     rerun = RerunStateMachine(args.rerun)
     # SIGTERM/SIGINT become a checkpoint-and-exit at the next step boundary
@@ -751,13 +811,15 @@ def train(args, on_step: Optional[Callable[[int, Dict[str, Any]], None]]
             "trace_window_ms": profiler.trace_window_ms,
             "predicted_time_cost_ms": predicted,
             "pipeline": pipe_record,
+            "rank": state.rank, "world_size": state.world_size,
+            "engine": engine if spmd else None,
             "exit_code": exit_code}
 
 
 def pipeline_record(engine) -> Optional[Dict[str, Any]]:
     """Which pipeline engine ran, with the compiled engine's captures,
     ``bubble_frac`` and recorded program costs (None at pp=1)."""
-    if engine is None:
+    if engine is None or not hasattr(engine, "split_params"):
         return None
     if not hasattr(engine, "compile_count"):
         return {"schedule": "host"}
@@ -775,7 +837,7 @@ def _exit_code(out: Dict[str, Any]) -> int:
 
 
 def _finish(out: Dict[str, Any]) -> int:
-    if out.get("exit_code") is None:
+    if out.get("exit_code") is None and not out.get("rank"):
         if not out["losses"]:
             print("training done: 0 iters (nothing left to train)")
         else:
@@ -817,7 +879,7 @@ def _run_once(args) -> Dict[str, Any]:
     """One attempt; appends its summary line when asked to."""
     out = train(args)
     path = args.extra.get("summary_path")
-    if path:
+    if path and not out.get("rank"):
         with open(path, "a") as f:
             f.write(json.dumps(run_summary(out, _exit_code(out))) + "\n")
     return out

@@ -120,11 +120,18 @@ class ParallelArgs:
     galvatron_config_path: Optional[str] = None
     pp_deg: int = 1
     global_tp_deg: int = 1
+    global_tp_consec: int = 1
     global_cp_deg: int = 1
     global_ep_deg: int = 1
+    global_etp_deg: int = 1
     sdp: int = 0
+    default_dp_type: str = "ddp"
     global_checkpoint: int = 0
     use_ulysses: bool = False
+    vocab_tp: int = 1
+    vocab_sp: int = 0
+    vocab_cp: int = 1
+    embed_sdp: int = 0
     virtual_pp_deg: int = 1
     chunks: int = -1
     global_train_batch_size: int = 8
@@ -138,6 +145,7 @@ class ParallelArgs:
 
     CHOICES: ClassVar[Dict[str, Tuple]] = {
         "config_mode": ("global", "json"),
+        "default_dp_type": ("ddp", "zero2", "zero3"),
         "mixed_precision": ("fp32", "bf16", "fp16"),
         "pipeline_type": ("gpipe", "pipedream_flush"),
     }
@@ -416,7 +424,7 @@ class SearchArgs:
     """JAX ``core/args_schema.py:620``: the strategy search's knobs
     (``core/search_engine/``). ``use_calibrated`` with a calibration
     directory is read here and raises by name where it is used (the
-    calibration loop, ROADMAP item 10)."""
+    calibration loop, ROADMAP item 10b)."""
 
     num_nodes: int = 1
     num_devices_per_node: int = 8
@@ -552,10 +560,8 @@ class HardwareProfileArgs:
 JAX_ONLY_KEYS: Dict[str, frozenset] = {
     "model": frozenset({"untie_streams"}),
     "parallel": frozenset({
-        "global_tp_consec", "cp_zigzag", "global_etp_deg", "default_dp_type",
-        "vocab_tp", "vocab_sp", "vocab_cp", "embed_sdp", "dp_axis_on_dcn",
-        "coordinator_address", "process_id", "hier_bucket_mb",
-        "dp_schedule"}),
+        "cp_zigzag", "dp_axis_on_dcn", "coordinator_address", "process_id",
+        "hier_bucket_mb", "dp_schedule"}),
     "pipeline": frozenset(),
     "tp_overlap": frozenset(),
     "train": frozenset({"check_loss", "deterministic_mode"}),
@@ -687,3 +693,19 @@ def build_section_unread(name: str, tree: Any) -> None:
     for key in tree:
         if key not in JAX_ONLY_KEYS[name]:
             raise ValueError(f"unknown config key {name}.{key}")
+
+
+def launch_env() -> Optional[Dict[str, int]]:
+    """The rank layout ``torch.distributed.run`` exports (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), or None outside
+    such a launch. Read here, at the schema's boundary, like every other
+    ambient setting."""
+    import os
+
+    if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    return {"rank": int(os.environ["RANK"]), "world_size": world,
+            "local_rank": int(os.environ.get("LOCAL_RANK", "0")),
+            "local_world_size": int(os.environ.get("LOCAL_WORLD_SIZE",
+                                                   str(world)))}

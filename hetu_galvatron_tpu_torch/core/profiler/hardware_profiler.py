@@ -12,7 +12,7 @@ is empty: JAX writes ``{}`` for the all-reduce, p2p and sp-time files and
 world-1 results, on the card or on the CPU.
 
 A world above 1 times collectives over process groups: the NCCL
-benchmarks come with the SPMD plans (ROADMAP item 10), so
+benchmarks come with the SPMD plans (ROADMAP item 10b), so
 :class:`HardwareProfiler` refuses such a world, and ``_collective_ms``,
 which would time one collective over a group, raises by name.
 """
@@ -26,7 +26,7 @@ from hetu_galvatron_tpu_torch.core.args_schema import HardwareProfileArgs
 from hetu_galvatron_tpu_torch.core.search_engine.profiles import write_json
 
 NCCL_ITEM = ("the NCCL collective benchmarks of the hardware profiler "
-             "(world size above 1) are not ported yet (ROADMAP item 10)")
+             "(world size above 1) are not ported yet (ROADMAP item 10b)")
 
 
 class HardwareProfiler:

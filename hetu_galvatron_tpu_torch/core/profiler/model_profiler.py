@@ -37,7 +37,7 @@ two runs over the layer difference as ONE decoder layer's time or memory
 
 ``tp_degs`` stops at the number of visible devices (1 on one card and on
 the CPU), as JAX's stops at ``len(devices)``; a tp degree above 1 needs
-the SPMD plans (ROADMAP item 10). The two measuring methods are the seam
+the SPMD plans (ROADMAP item 10b). The two measuring methods are the seam
 that tests replace.
 """
 

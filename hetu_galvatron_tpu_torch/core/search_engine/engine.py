@@ -22,7 +22,7 @@ winner passes the memory doctor's predicate
 ``cli/check.py --memory --hbm-gb`` applies); with ``search.hier_dp=1`` the
 plan records ``hier_dp``, ``hier_bucket_mb``, ``dp_schedule`` and
 ``dp_schedule_rankings`` as JAX's does. The port's runtime still refuses
-``hier_dp=1`` plans (ROADMAP items 12 and 14b).
+``hier_dp=1`` plans (ROADMAP items 12d and 14b).
 """
 
 from __future__ import annotations

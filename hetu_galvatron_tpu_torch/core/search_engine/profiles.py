@@ -13,7 +13,7 @@ The fits use ``scipy.optimize.curve_fit``, as JAX's do: the golden
 throughputs depend on those exact fits. This is the one module of the
 package that imports scipy, and only inside the fits. The calibration
 feed's readers (``read_profile_provenance``, ``merge_calibrated_profile``)
-come with the calibration loop (ROADMAP item 10).
+come with the calibration loop (ROADMAP item 10b).
 """
 
 from __future__ import annotations

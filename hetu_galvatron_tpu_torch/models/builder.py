@@ -69,6 +69,22 @@ def init_causal_lm(cfg: ModelArgs, seed: int = 1234,
     return params
 
 
+def causal_lm_axes(cfg: ModelArgs) -> Params:
+    """The logical axis names of every leaf of :func:`init_causal_lm`'s
+    tree, in its structure (JAX ``init_causal_lm``'s second result) for the
+    dense decoder stacks the SPMD plans run."""
+    if cfg.model_type == "t5" or cfg.num_experts:
+        raise NotImplementedError(
+            "logical axes of t5 and MoE stacks: their SPMD plans are "
+            "ROADMAP item 10b")
+    layer = {"ln1": M.norm_axes(cfg), "attn": M.attention_axes(cfg),
+             "ln2": M.norm_axes(cfg), "mlp": M.mlp_axes(cfg)}
+    return {"embed": M.embedding_axes(cfg),
+            "layers": [dict(layer) for _ in range(cfg.num_hidden_layers)],
+            "prenorm": {} if cfg.post_norm else M.norm_axes(cfg),
+            "head": M.lm_head_axes(cfg)}
+
+
 def named_leaves(params: Params, prefix: str = ""
                  ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(dotted path, tensor) for every leaf, in a fixed order."""

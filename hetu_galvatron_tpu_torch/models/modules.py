@@ -18,6 +18,18 @@ rope with "linear" / "llama3" scaling (``_scale_inv_freq``), multimodal
 rope (``mrope_cos_sin``) and gemma's zero-centered norms and scaled
 embeddings. MoE layers live in ``models/moe.py``, the T5 encoder-decoder
 stacks in ``models/encdec.py``.
+
+The tensor-parallel seams (``tp=`` of :func:`apply_attention`,
+:func:`apply_mlp` and :func:`apply_decoder_layer`, ``vocab=`` of
+:func:`apply_embedding` and :func:`apply_lm_head`) default to None, which
+is the single-device arithmetic bit for bit. ``parallel/spmd.py`` passes
+them for a layer wider than one rank: the layer then holds its rank's
+column and row shards and calls the seam where GSPMD puts the collectives
+(a Megatron-SP sequence gather before the column-parallel product, a
+reduce-scatter after the row-parallel one; a vocab-parallel lookup and a
+column-parallel head). The ``*_axes`` functions give each leaf's logical
+axis names, JAX's ``init_*`` second results, which ``runtime/mesh.py``
+maps onto a layer's ranks.
 """
 
 from __future__ import annotations
@@ -95,6 +107,13 @@ def init_norm(cfg: ModelArgs, device) -> Params:
     if cfg.normalization == "layernorm":
         p["bias"] = torch.zeros(cfg.hidden_size, device=device)
     return p
+
+
+def norm_axes(cfg: ModelArgs) -> Params:
+    a = {"scale": ("embed",)}
+    if cfg.normalization == "layernorm":
+        a["bias"] = ("embed",)
+    return a
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelArgs) -> torch.Tensor:
@@ -254,6 +273,15 @@ def init_attention(gen: torch.Generator, cfg: ModelArgs, device) -> Params:
     return p
 
 
+def attention_axes(cfg: ModelArgs) -> Params:
+    a = {"wqkv": ("embed", "qkv"), "wo": ("heads", "embed")}
+    if cfg.add_qkv_bias:
+        a["bqkv"] = ("qkv",)
+    if cfg.add_bias_linear:
+        a["bo"] = ("embed",)
+    return a
+
+
 def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
             dtype: torch.dtype) -> torch.Tensor:
     y = torch.matmul(x.to(dtype), w.to(dtype))
@@ -270,10 +298,20 @@ def apply_attention(
     causal: bool = True,
     dropout_rng: Optional[torch.Generator] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    tp: Any = None,
 ) -> torch.Tensor:
+    """Self-attention of ``x [B, S, H]``. With a ``tp`` seam the layer holds
+    its rank's heads (``wqkv`` columns q | k | v of them, ``wo`` rows) and
+    ``x`` its sequence shard: ``tp.gather`` makes the whole sequence
+    before the product and ``tp.scatter`` sums the row-parallel output
+    over the group back onto the shard, the bias added after."""
+    if tp is not None:
+        x = tp.gather(x)
     B, S, _ = x.shape
     hd = cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.kv_heads
+    if tp is not None:
+        nq, nkv = nq // tp.size, nkv // tp.size
     qkv = _linear(x, p["wqkv"], p.get("bqkv"), compute_dtype)
     q, k, v = torch.split(qkv, [nq * hd, nkv * hd, nkv * hd], dim=-1)
     q = q.view(B, S, nq, hd)
@@ -302,6 +340,9 @@ def apply_attention(
     else:
         out = sdpa_fn(q, k, v, causal=causal)
     out = out.reshape(B, S, nq * hd)
+    if tp is not None:
+        out = tp.scatter(_linear(out, p["wo"], None, compute_dtype))
+        return out if "bo" not in p else out + p["bo"].to(compute_dtype)
     return _linear(out, p["wo"], p.get("bo"), compute_dtype)
 
 
@@ -344,15 +385,32 @@ def init_mlp(gen: torch.Generator, cfg: ModelArgs, device,
     return p
 
 
+def mlp_axes(cfg: ModelArgs) -> Params:
+    a = {"win": ("embed", "mlp"), "wout": ("mlp", "embed")}
+    if cfg.add_bias_linear:
+        a["bin"] = ("mlp",)
+        a["bout"] = ("embed",)
+    return a
+
+
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelArgs,
-              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              compute_dtype: torch.dtype = torch.bfloat16,
+              tp: Any = None) -> torch.Tensor:
+    """The MLP of ``x``; a ``tp`` seam as in :func:`apply_attention` (the
+    rank's ``win`` columns, gate | up of them when gated, and ``wout``
+    rows)."""
     act = _ACTS[cfg.hidden_act]
+    if tp is not None:
+        x = tp.gather(x)
     h = _linear(x, p["win"], p.get("bin"), compute_dtype)
     if is_gated(cfg.hidden_act):
         gate, up = torch.chunk(h, 2, dim=-1)
         h = act(gate) * up
     else:
         h = act(h)
+    if tp is not None:
+        out = tp.scatter(_linear(h, p["wout"], None, compute_dtype))
+        return out if "bout" not in p else out + p["bout"].to(compute_dtype)
     return _linear(h, p["wout"], p.get("bout"), compute_dtype)
 
 
@@ -443,10 +501,13 @@ def apply_decoder_layer(
     causal: Optional[bool] = None,
     dropout_rng: Optional[torch.Generator] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    tp: Any = None,
 ) -> torch.Tensor:
     """Pre-norm residual block, or with ``cfg.post_norm`` (BERT) residual
     then norm for both sublayers; sublayer outputs take hidden dropout
-    before the residual add. ``causal=None`` is bidirectional for bert."""
+    before the residual add. ``causal=None`` is bidirectional for bert.
+    ``tp`` is the sublayers' seam (:func:`apply_attention`): the norms and
+    the residual stream stay on the sequence shard."""
     if causal is None:
         causal = cfg.model_type != "bert"
     r_attn, r_res1, r_res2 = split_rng(dropout_rng, 3)
@@ -464,11 +525,11 @@ def apply_decoder_layer(
                                     sdpa_fn=sdpa_fn,
                                     compute_dtype=compute_dtype,
                                     causal=causal, dropout_rng=r_attn,
-                                    segment_ids=segment_ids),
+                                    segment_ids=segment_ids, tp=tp),
                     cfg.hidden_dropout, r_res1)
     h = apply_norm(p["ln2"], x, cfg)
     return x + dropout(apply_mlp(p["mlp"], h, cfg,
-                                 compute_dtype=compute_dtype),
+                                 compute_dtype=compute_dtype, tp=tp),
                        cfg.hidden_dropout, r_res2)
 
 
@@ -490,19 +551,39 @@ def init_embedding(gen: torch.Generator, cfg: ModelArgs, device) -> Params:
     return p
 
 
+def embedding_axes(cfg: ModelArgs) -> Params:
+    a = {"wte": ("vocab", "embed")}
+    if cfg.position_embedding_type == "learned":
+        a["wpe"] = ("pos", "embed")
+    if cfg.post_norm:
+        a["ln"] = norm_axes(cfg)
+    return a
+
+
 def apply_embedding(p: Params, tokens: torch.Tensor, cfg: ModelArgs,
                     compute_dtype: torch.dtype = torch.bfloat16,
                     dropout_rng: Optional[torch.Generator] = None,
-                    position_ids: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    position_ids: Optional[torch.Tensor] = None,
+                    vocab: Any = None) -> torch.Tensor:
     """Token (+ position) rows in fp32, then BERT's LayerNorm, gemma's
-    sqrt(hidden) scale and dropout, cast to the compute dtype."""
-    x = p["wte"][tokens]
+    sqrt(hidden) scale and dropout, cast to the compute dtype. With a
+    ``vocab`` seam ``wte`` holds the rank's vocab rows: ``vocab.lookup``
+    gathers the tokens inside them (zeros elsewhere) and sums over the
+    vocab group onto the rank's sequence shard, which is exact, since one
+    shard alone holds each row; the positions are then the shard's
+    (``vocab.seq_slice``)."""
+    if vocab is None:
+        x = p["wte"][tokens]
+    else:
+        x = vocab.lookup(p["wte"], tokens)
     if "wpe" in p:
         if position_ids is not None:  # packed samples: per-token positions
+            if vocab is not None:
+                position_ids = vocab.seq_slice(position_ids)
             x = x + p["wpe"][position_ids]
         else:
-            x = x + p["wpe"][:tokens.shape[1]][None, :, :]
+            w = p["wpe"][:tokens.shape[1]][None, :, :]
+            x = x + (w if vocab is None else vocab.seq_slice(w))
     if "ln" in p:
         x = apply_norm(p["ln"], x, cfg)
     if cfg.scale_embeddings:
@@ -530,13 +611,30 @@ def init_lm_head(gen: torch.Generator, cfg: ModelArgs, device) -> Params:
     return {"whead": normal(gen, (h, v), 0.02, device)}
 
 
+def lm_head_axes(cfg: ModelArgs) -> Params:
+    if cfg.model_type == "bert":
+        a = {"wt": ("pos", "embed"), "bt": ("embed",), "ln": norm_axes(cfg),
+             "bias": ("vocab",)}
+        if not cfg.tie_word_embeddings:
+            a["whead"] = ("embed", "vocab")
+        return a
+    if cfg.tie_word_embeddings:
+        return {}
+    return {"whead": ("embed", "vocab")}
+
+
 def apply_lm_head(p: Params, x: torch.Tensor, cfg: ModelArgs,
                   wte: Optional[torch.Tensor] = None,
-                  compute_dtype: torch.dtype = torch.bfloat16
-                  ) -> torch.Tensor:
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  vocab: Any = None) -> torch.Tensor:
     """fp32 logits [B, S, V]; the tied head reuses the embedding table.
     BERT's MLM head first runs its transform (``wt`` + ``bt``, the
-    activation and the norm, in fp32) and adds the vocab bias last."""
+    activation and the norm, in fp32) and adds the vocab bias last. With
+    a ``vocab`` seam the head is column-parallel over the vocabulary:
+    ``vocab.gather`` makes the whole sequence of ``x``'s shard and the
+    logits are the rank's vocab columns ``[B, S, V / vtp]``."""
+    if vocab is not None:
+        x = vocab.gather(x)
     if "wt" in p:
         x = _linear(x, p["wt"], None, compute_dtype).float() + p["bt"]
         x = apply_norm(p["ln"], _ACTS[cfg.hidden_act](x), cfg)
@@ -547,24 +645,32 @@ def apply_lm_head(p: Params, x: torch.Tensor, cfg: ModelArgs,
     return logits
 
 
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              z_loss: float = 0.0, fused: Any = False) -> torch.Tensor:
+    """Per-token NLL (``+ z * lse**2``) in fp32: ``fused=True`` through
+    ``fused_ce_nll`` (K4/K5 on a CUDA device, their plain versions on the
+    CPU), a callable ``fused`` through it (``ops.cross_entropy.
+    make_vocab_parallel_ce``'s over vocab-sharded logits), else plain."""
+    if callable(fused):
+        return fused(logits, labels, z_loss=z_loss)
+    if fused:
+        return fused_ce_nll(logits, labels, z_loss=z_loss)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    return nll
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        loss_mask: Optional[torch.Tensor] = None,
-                       z_loss: float = 0.0, fused: bool = False
+                       z_loss: float = 0.0, fused: Any = False
                        ) -> torch.Tensor:
-    """Stable mean CE over masked tokens, fp32 throughout. ``fused=True``
-    takes the per-token NLL from ``fused_ce_nll`` (K4/K5 on a CUDA device,
-    their plain versions on the CPU); mask and mean stay plain. (The JAX
-    function also takes a vocab-parallel NLL callable; that waits for the
-    SPMD slice.)"""
-    if fused:
-        nll = fused_ce_nll(logits, labels, z_loss=z_loss)
-    else:
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-        nll = lse - gold
-        if z_loss:
-            nll = nll + z_loss * lse.square()
+    """Stable mean CE over masked tokens, fp32 throughout; ``fused`` as in
+    :func:`token_nll`, mask and mean plain."""
+    nll = token_nll(logits, labels, z_loss=z_loss, fused=fused)
     if loss_mask is None:
         return nll.mean()
     loss_mask = loss_mask.float()

@@ -14,8 +14,13 @@ raise.
 Unlike the Pallas kernels, which need T and V to tile and return ``None``
 otherwise, the CUDA kernels take any T and V (and a row stride larger than
 V), so there is no "untileable" answer. Labels outside ``[0, V)`` gather 0
-and put no one-hot into K5, as ``vpos == lab`` does in JAX: that is how
-vocab shards will feed them (``make_vocab_parallel_ce``, a later slice).
+and put no one-hot into K5, as ``vpos == lab`` does in JAX: that is how the
+vocab shards feed them. :func:`make_vocab_parallel_ce` (JAX :208-275) runs
+K4 on a rank's ``[T, V / vtp]`` logits with the labels offset by its
+shard, merges the lse over the vocab group (a max all-reduce of the
+local lse, then a sum all-reduce of ``exp(lse - m)``) and sums the gold;
+its backward is K5 on the local logits against the merged lse. No kernel
+of its own: K4/K5 take the shard as they are.
 """
 
 from __future__ import annotations
@@ -182,3 +187,58 @@ def fused_ce_nll(logits: torch.Tensor, labels: torch.Tensor, *,
     if z_loss:
         nll = nll + z_loss * lse.square()
     return nll.reshape(lead)
+
+
+class _VocabParallelLseGold(torch.autograd.Function):
+    """``(lse, gold)`` [T] over the vocabulary split across ``group``: K4
+    (or its plain version, ``kernels``) on this rank's ``[T, V_l]``
+    columns, the lse merged and the gold summed over the group. The
+    function holds the merged lse: its backward is K5 on the local
+    logits against it, with ``a = d_lse`` and ``b = -d_gold``, which is
+    this shard's part of the whole vocabulary's dlogits. The merged
+    values are equal on every rank of the group and so are their
+    gradients, which the backward therefore takes as they come."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, kernels):
+        from hetu_galvatron_tpu_torch.parallel.comm import all_reduce
+
+        fwd, bwd = kernels
+        lse_l, gold_l = fwd(logits, labels)
+        m = all_reduce(lse_l, group, op="max")
+        lse = m + torch.log(all_reduce(torch.exp(lse_l - m), group))
+        gold = all_reduce(gold_l, group)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.bwd = bwd
+        return lse, gold
+
+    @staticmethod
+    def backward(ctx, d_lse, d_gold):
+        logits, labels, lse = ctx.saved_tensors
+        return ctx.bwd(logits, labels, lse, d_lse.float().contiguous(),
+                       (-d_gold.float()).contiguous()), None, None, None
+
+
+def make_vocab_parallel_ce(group, *, fused: bool = True,
+                           z_loss: float = 0.0):
+    """Vocab-parallel per-token NLL over logits whose vocabulary is split
+    across ``group`` (a ``runtime/mesh.Group``; rank i holds columns
+    ``[i V_l, (i + 1) V_l)``), JAX ``make_vocab_parallel_ce``. Returns
+    ``nll_fn(logits [..., V_l], labels [...], z_loss=...) -> nll [...]``,
+    equal on every rank of the group. ``fused`` runs K4/K5 (their plain
+    versions for CPU tensors); ``fused=False`` the plain versions on any
+    device, the unfused loss over sharded logits."""
+    kernels = (ce_fwd, ce_bwd) if fused else (ce_fwd_plain, ce_bwd_plain)
+
+    def nll_fn(logits, labels, z_loss=z_loss):
+        V_l = logits.shape[-1]
+        lead = logits.shape[:-1]
+        local = labels.reshape(-1) - group.index * V_l
+        lse, gold = _VocabParallelLseGold.apply(
+            logits.reshape(-1, V_l), local, group, kernels)
+        nll = lse - gold
+        if z_loss:
+            nll = nll + z_loss * lse.square()
+        return nll.reshape(lead)
+
+    return nll_fn

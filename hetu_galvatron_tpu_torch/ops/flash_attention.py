@@ -446,3 +446,42 @@ def flash_sdpa(q, k, v, *, causal: bool = True, segment_ids=None,
 flash_sdpa.supports_segments = True
 # in-kernel counter-based attention dropout (fwd + bwd regenerate the mask)
 flash_sdpa.supports_dropout = True
+
+
+def shard_seed(seed: int, idx: int) -> int:
+    """JAX ``make_flash_sdpa._shard_seed`` (:666): fold a shard's mixed-radix
+    (dp, tp) index into the dropout seed, ``seed + idx * -1640531527`` in
+    int32 arithmetic (2654435761 as int32), so masks decorrelate across the
+    sharded batch and heads."""
+    v = (int(seed) + int(idx) * -1640531527) & _U32
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+def make_flash_sdpa(mesh, rank: int, dp_axes=(), tp_axes=()):
+    """Distributed flash attention (JAX ``make_flash_sdpa`` :625): K1-K3 on
+    this rank's local batch rows and heads, the sequence whole. Under
+    dropout the seed drawn from ``dropout_rng`` (or given as
+    ``dropout_seed``) takes the rank's (dp, tp) index through
+    :func:`shard_seed` bit for bit. Every shape goes to the kernels: JAX's
+    ``_xla_fallback`` (:672) serves shapes no Pallas tile fits, and the CUDA
+    kernels tile any sequence; :func:`flash_sdpa` refuses by name what they
+    do not take."""
+    idx = mesh.axis_index(rank, tuple(dp_axes) + tuple(tp_axes))
+
+    def sdpa(q, k, v, *, causal=True, segment_ids=None,
+             dropout_rate: float = 0.0, dropout_rng=None,
+             dropout_seed: Optional[int] = None):
+        if dropout_rate > 0.0:
+            if dropout_seed is None:
+                if dropout_rng is None:
+                    raise ValueError("flash dropout_rate > 0 needs "
+                                     "dropout_rng")
+                dropout_seed = seed_from_generator(dropout_rng)
+            dropout_seed = shard_seed(dropout_seed, idx)
+        return flash_sdpa(q, k, v, causal=causal, segment_ids=segment_ids,
+                          dropout_rate=dropout_rate,
+                          dropout_seed=dropout_seed)
+
+    sdpa.supports_segments = True
+    sdpa.supports_dropout = True
+    return sdpa

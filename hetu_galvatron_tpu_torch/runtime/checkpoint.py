@@ -1146,6 +1146,18 @@ def params_to_jax(params: Params) -> Params:
     return _convert(params, _to_numpy, tuple)
 
 
+def spmd_params_from_jax(tree: Params, engine, device="cpu") -> Params:
+    """The JAX package's full parameter tree -> this rank's slices under a
+    plan over ranks (``parallel/spmd.SpmdEngine.shard_params``)."""
+    return engine.shard_params(params_from_jax(tree, device))
+
+
+def spmd_params_to_jax(params: Params, engine) -> Params:
+    """This rank's slices -> the JAX package's full tree (numpy), through
+    ``SpmdEngine.gather_params``: a collective, every rank calls it."""
+    return params_to_jax(engine.gather_params(params))
+
+
 def _jax_named(tree: Any, prefix: str = ""):
     """(dotted name, leaf) over a JAX-side tree in ``named_leaves`` order:
     dict keys sorted, tuple and list entries by index; optax's

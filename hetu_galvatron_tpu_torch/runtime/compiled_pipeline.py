@@ -68,8 +68,8 @@ graph that each step replays.
 Refused by name: plans the compiled schedule cannot express
 (``analysis/eligibility.compiled_unsupported_reason``, JAX's reasons;
 the launcher then runs the host engine and logs the reason); stages wider
-than one rank and lanes spread over several devices (ROADMAP items 10 and
-12c); and, on a CUDA device, dropout (:data:`DROPOUT_REASON`). The eval
+than one rank and lanes spread over several devices (ROADMAP item 12c);
+and, on a CUDA device, dropout (:data:`DROPOUT_REASON`). The eval
 step runs eagerly (``T = m + pp - 1`` forward ticks), not captured.
 """
 
@@ -174,8 +174,8 @@ class CompiledPipelineEngine:
         if wide:
             raise NotImplementedError(
                 f"compiled pipeline: layer {wide[0]} is wider than one rank "
-                f"({hpc.layers[wide[0]]}); stages of several ranks need the "
-                "SPMD plans on NCCL (ROADMAP item 10)")
+                f"({hpc.layers[wide[0]]}); a pipeline stage wider than one "
+                "rank is not ported yet (ROADMAP item 12c)")
         devices = list(devices)[:hpc.world_size]
         if len(devices) < hpc.world_size:
             raise ValueError(f"need {hpc.world_size} stage devices, have "
@@ -185,7 +185,7 @@ class CompiledPipelineEngine:
                 f"compiled pipeline: the {hpc.pp_deg} stage lanes would "
                 f"spread over {len(set(devices))} devices; this engine runs "
                 "every lane on one device (lanes over several cards: "
-                "ROADMAP items 10 and 12c)")
+                "ROADMAP item 12c)")
         self.cfg, self.hpc, self.train = cfg, hpc, train
         self.compute_dtype = compute_dtype
         self.device = devices[0]

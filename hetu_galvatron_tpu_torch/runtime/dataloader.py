@@ -10,6 +10,13 @@ T5's seq2seq split (``seq2seq_batches``), giving the same numpy batches for
 the same seed and position; ``skip_batches`` replays a resumed run's data
 position. Not ported yet, and raising: ``s3://`` corpus prefixes and the
 zigzag cp layout.
+
+Under a plan over several ranks (``parallel/spmd.py``) every rank builds
+the same global batch from the seed; each layer then keeps its own rows
+(``parallel/spmd.batch_sharding``: the rows of its dp shard, the sequence
+whole), since the embedding and the layers of a searched plan may split
+the batch over different axes. The tokens of a batch weigh a few hundred
+kilobytes, so no collective moves them.
 """
 
 from __future__ import annotations

@@ -32,6 +32,11 @@ where the JAX package returns new arrays, in groups of leaves of at most
 ``GROUP_BYTES`` of fp32 (a larger leaf forms its own group): the update's
 two temporaries then take twice the largest group, not twice the model.
 Grouping leaves the arithmetic of every element as it is.
+
+Over a plan split across ranks (``parallel/spmd.py``) the chain runs
+unchanged on each rank's leaves, or on ZeRO-2's slices of them; only the
+clip's norm is the sharded one (:func:`sharded_grad_norm`), which counts
+each logical element once.
 """
 
 from __future__ import annotations
@@ -111,6 +116,20 @@ def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """fp32 global L2 norm over every gradient leaf."""
     norms = torch._foreach_norm([g.float() for g in grads])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def sharded_grad_norm(counted: List[torch.Tensor],
+                      all_reduce: Callable[[torch.Tensor], torch.Tensor],
+                      device) -> torch.Tensor:
+    """fp32 global L2 norm of a model whose gradient leaves are split over
+    ranks (``parallel/spmd.py``): ``counted`` holds the gradients this
+    rank counts (each logical element is counted by one rank, however many
+    hold it) and ``all_reduce`` sums the squares over the ranks."""
+    sq = torch.zeros((), dtype=torch.float32, device=device)
+    if counted:
+        norms = torch._foreach_norm([g.float() for g in counted])
+        sq = torch.stack(norms).square().sum()
+    return torch.sqrt(all_reduce(sq))
 
 
 @dataclass

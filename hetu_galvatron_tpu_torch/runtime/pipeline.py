@@ -58,11 +58,11 @@ The span names are JAX's (``pp/fwd_s<c>``, ``pp/bwd_s<c>``,
 reads them.
 
 Refused by name, as not ported yet: stages wider than one rank (tp, cp,
-sp, ep, a world other than ``pp_deg``: ROADMAP item 10). The launcher
+sp, ep, a world other than ``pp_deg``: ROADMAP item 12c). The launcher
 refuses the rest where the settings enter (``cli/train_dist.check_flags``
 and ``runtime/hybrid_config.check_plan_width``): the hierarchical dp
 reduction and its per-lane backward (``hier_dp``, ``_make_bwd_lanes``
-:688; items 12 and 14), overlapped tp (item 11) and ``dcn_slices > 1``.
+:688; item 12d), overlapped tp (item 11) and ``dcn_slices > 1``.
 The per-stage cost recording (``maybe_record_jit_cost``) waits for a
 captured step.
 """
@@ -143,8 +143,8 @@ class PipelineEngine:
         if wide:
             raise NotImplementedError(
                 f"pipeline: layer {wide[0]} is wider than one rank "
-                f"({hpc.layers[wide[0]]}); stages of several ranks need the "
-                "SPMD plans on NCCL (ROADMAP item 10)")
+                f"({hpc.layers[wide[0]]}); a pipeline stage wider than one "
+                "rank is not ported yet (ROADMAP item 12c)")
         devices = list(devices)
         if len(devices) < hpc.world_size:
             raise ValueError(f"need {hpc.world_size} stage devices, have "

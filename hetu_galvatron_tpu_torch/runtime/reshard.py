@@ -37,7 +37,7 @@ trees shaped like the parameters; its ``adam`` / ``sgd`` leaf indices
 belong to a layout and come from the destination's template.
 
 Not ported: ``reshard_params`` :452 re-lays a tree over a device mesh,
-which waits for the SPMD plans (ROADMAP item 10); the launcher's elastic
+which is ROADMAP item 10b; the launcher's elastic
 pre-pass that calls :func:`resume_elastic` when the world changes waits
 for item 15b. This is resume-path code: host copies are the point.
 """

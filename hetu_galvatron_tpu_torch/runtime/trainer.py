@@ -20,6 +20,12 @@ layers' router statistics by ``layer{i}``) and the stats come back in
 ``metrics["moe"]``: over microbatches, loss-like stats are weighted by each
 microbatch's token share and ``tokens_per_expert`` is summed.
 
+Over several ranks the step is ``parallel/spmd.SpmdEngine``'s, which
+reuses this module's microbatch split and token-share weights: microbatch
+c holds global rows ``[c B / chunks, (c + 1) B / chunks)`` on every rank,
+each layer takes its dp shard of them, and every rank's loss is over the
+microbatch's global token count.
+
 Not ported yet, and raising: the hierarchical dp reduction (``hier``).
 """
 

@@ -83,7 +83,7 @@ def test_torch_train_dist_with_dropout_runs_on_cpu():
     "observability.calibration_dir=/tmp/x",
     "parallel.global_tp_deg=2", "parallel.global_ep_deg=2",
     "parallel.num_devices=2", "parallel.num_processes=2",
-    "parallel.config_mode=json", "parallel.sdp=1",
+    "parallel.config_mode=json", "parallel.global_cp_deg=2",
 ])
 def test_torch_train_dist_refuses_flags_outside_the_slice(flag):
     name = flag.split("=")[0]
@@ -94,7 +94,7 @@ def test_torch_train_dist_refuses_flags_outside_the_slice(flag):
         train_dist.main([GPT2, *TINY, flag, *extra])
     # a trace window with the plan audit on (its default) names the audit
     # (the plan is pp=2 with tp=2: its stages would be wider than one rank)
-    key = {"parallel.config_mode": "tp_sizes_enc", "parallel.sdp": "sdp",
+    key = {"parallel.config_mode": "tp_sizes_enc",
            "parallel.num_processes": "num_processes",
            "profile.trace_dir": "observability.audit"}.get(name, name)
     assert key in str(err.value)
@@ -166,8 +166,13 @@ def test_torch_hybrid_config_single_device_plan():
     hpc = TH.get_hybrid_parallel_config(
         load_config(GPT2, TINY + ["parallel.chunks=2"]), 1)
     assert (hpc.pp_deg, hpc.chunks, hpc.global_bsz) == (1, 2, 4)
+    # a pp=1 plan at world 2 is data parallel over two ranks; a pipeline
+    # at a world other than its stages is refused
+    wide = TH.get_hybrid_parallel_config(load_config(GPT2, TINY), 2)
+    assert {(s.dp_size, s.tp_size) for s in wide.layers} == {(2, 1)}
     with pytest.raises(NotImplementedError, match="world size"):
-        TH.get_hybrid_parallel_config(load_config(GPT2, TINY), 2)
+        TH.get_hybrid_parallel_config(
+            load_config(GPT2, TINY + ["parallel.pp_deg=2"]), 4)
     with pytest.raises(ValueError, match="divisible"):
         TH.get_hybrid_parallel_config(
             load_config(GPT2, TINY + ["parallel.chunks=3"]), 1)

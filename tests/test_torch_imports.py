@@ -73,6 +73,15 @@ STATIC = (
     "hetu_galvatron_tpu_torch.analysis.lint",
     "hetu_galvatron_tpu_torch.cli.check",
 )
+# the SPMD plans over ranks: the rank grid and lowering (host arithmetic,
+# no torch at import), the collectives, the step and the spawner
+SPMD = (
+    "hetu_galvatron_tpu_torch.runtime.mesh",
+    "hetu_galvatron_tpu_torch.parallel",
+    "hetu_galvatron_tpu_torch.parallel.comm",
+    "hetu_galvatron_tpu_torch.parallel.spmd",
+    "hetu_galvatron_tpu_torch.parallel.launch",
+)
 # scipy (curve_fit) is allowed in the profile readers alone
 SCIPY_ALLOWED = os.path.join("hetu_galvatron_tpu_torch", "core",
                              "search_engine", "profiles.py")
@@ -137,6 +146,7 @@ for m in mods:
 assert set({LIFECYCLE!r}) <= set(mods), set({LIFECYCLE!r}) - set(mods)
 assert set({SEARCH!r}) <= set(mods), set({SEARCH!r}) - set(mods)
 assert set({STATIC!r}) <= set(mods), set({STATIC!r}) - set(mods)
+assert set({SPMD!r}) <= set(mods), set({SPMD!r}) - set(mods)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m == {JAX_PKG!r}
                 or m.startswith({JAX_PKG!r} + "."))
@@ -177,14 +187,14 @@ print("ok")
 
 def test_torch_search_side_imports_no_torch():
     """The strategy search is host arithmetic: its modules (and the
-    world-1 hardware profiler), the static checks and the collective
-    schedules import with torch poisoned, and the scipy fits load only
+    world-1 hardware profiler), the static checks, the collective
+    schedules and the rank grid import with torch poisoned, and the scipy fits load only
     when a profile is fitted."""
     code = f"""
 import importlib, sys
 for name in {BLOCKED!r} + ("torch",):
     sys.modules[name] = None
-for m in {SEARCH[:-2] + STATIC!r}:
+for m in {SEARCH[:-2] + STATIC + SPMD[:1]!r}:
     importlib.import_module(m)
 assert "scipy" not in sys.modules
 from hetu_galvatron_tpu_torch.core.search_engine.profiles import fit_linear

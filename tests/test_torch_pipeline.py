@@ -337,9 +337,9 @@ def test_torch_pipeline_dropout_repeats_from_one_generator():
 
 REFUSALS = {
     "pp1": (dict(pp_deg=1), ValueError, "pp_deg >= 2"),
-    "tp2": (dict(global_tp_deg=2), NotImplementedError, "ROADMAP item 10"),
+    "tp2": (dict(global_tp_deg=2), NotImplementedError, "ROADMAP item 12c"),
     # refused where the plan enters, before any engine is built
-    "hier_dp": ("hier_dp", NotImplementedError, "ROADMAP items 12 and 14"),
+    "hier_dp": ("hier_dp", NotImplementedError, "ROADMAP item 12d"),
     "world": ("world", NotImplementedError, "world size 4"),
     "batch_key": ("batch_key", NotImplementedError, "mrope_position_ids"),
 }

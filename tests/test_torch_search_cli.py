@@ -212,7 +212,11 @@ def test_torch_plans_wider_than_one_device_are_refused(plan, field,
                                       f"parallel.galvatron_config_path={path}"])
     with pytest.raises(NotImplementedError) as err:
         TH.get_hybrid_parallel_config(args, 1)
-    assert field in str(err.value) and "ROADMAP item" in str(err.value)
+    # refused by its ROADMAP item, or (a pp=1 plan of tp or vtp, which the
+    # SPMD step runs) by a world of one rank, naming the launcher
+    assert field in str(err.value) and (
+        "ROADMAP item" in str(err.value)
+        or "torch.distributed.run" in str(err.value))
 
 
 def test_torch_json_plan_errors_name_the_problem(tmp_path):
@@ -223,8 +227,12 @@ def test_torch_json_plan_errors_name_the_problem(tmp_path):
     args = load_config(GPT2, MODEL + [f"parallel.galvatron_config_path={path}"])
     with pytest.raises(ValueError, match="plan has 3 layers, model has 4"):
         TH.get_hybrid_parallel_config(args, 1)
-    with pytest.raises(NotImplementedError, match="world size 2"):
-        TH.get_hybrid_parallel_config(args, 2)
+    pipe = _plan(tmp_path, n=4, name="pp2.json", pp_deg=2,
+                 pp_division="2,2")
+    args = load_config(GPT2, MODEL + [f"parallel.galvatron_config_path="
+                                      f"{pipe}"])
+    with pytest.raises(NotImplementedError, match="world size 4"):
+        TH.get_hybrid_parallel_config(args, 4)
 
 
 def test_torch_search_refuses_the_calibration_feed(tmp_path):
