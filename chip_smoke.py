@@ -9,8 +9,8 @@ each of which ends the run with a non-zero exit when it fails:
 1. device: the card's name and power limit (``nvidia-smi``) and CUDA version;
 2. build: compile the kernels K1-K5 (flash attention, fused cross-entropy)
    from ``hetu_galvatron_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a``, and
-   print each kernel's registers and spills (``-Xptxas -v``; a spill fails
-   the run);
+   print the build seconds and each kernel's registers and spills
+   (``-Xptxas -v``; a spill fails the run);
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs, every element held within its tolerance, timed beside the plain
    version, one PyTorch library call and the card's bound for the same
@@ -20,8 +20,17 @@ each of which ends the run with a non-zero exit when it fails:
    bf16 and fp16, causal with packed segments) and on small cases covering
    GQA, segment ids (also repeating out of order), dropout, non-causal
    Sk != S, a ragged S, D=32 and D=40, rows whose stride is not a multiple
-   of 8 elements, and fp16 (bf16 and fp16 run the tensor-core K1-K3, fp32
-   their FMA kernels). For K1-K3 at both main shapes it also reports
+   of 8 elements, and fp16 (bf16 and fp16 at D = 64 or 128 on operands
+   TMA can describe run K1 and K2 on their wgmma + TMA kernels, other
+   16-bit cases and K3 on the mma.sync kernels, fp32 the FMA kernels:
+   ``ops/flash_attention.kernel_route``). At every path's shape (GPT-2,
+   Qwen packed and, as phase 17 runs it, unpacked, Mixtral, Llama, BERT,
+   T5's three; phase 16's Qwen B=1 and phase 18's tp2 in those phases'
+   kernel checks) it prints the route
+   each kernel took and times K1 and K2 on the wgmma route against the
+   mma.sync route in turns (mma, wgmma, wgmma, mma), with both routes'
+   share of the bound and the goal (half the bound; bf16's hi + lo caps
+   it at 2/3). For K1-K3 at both main shapes it also reports
    TFLOP/s over the kept pairs, the share of the bound, K1 against the
    library forward and K2 + K3 against the library backward, and in its log
    the tiles the tile rule (``computed_tiles``) computes against the tiles
@@ -380,12 +389,16 @@ TOL_CE_LSE = 1e-4  # absolute, on K4's fp32 logsumexp (one row, no tiles)
 
 KERNELS = {
     "flash_fwd": dict(
-        route="cuda", source="hetu_galvatron_tpu_torch/csrc/flash_fwd.cu",
+        route="cuda",
+        source="hetu_galvatron_tpu_torch/csrc/flash_fwd_sm90.cu",
+        mma_source="hetu_galvatron_tpu_torch/csrc/flash_fwd.cu",
         replaces="hetu_galvatron_tpu/ops/pallas/flash_attention.py:86",
         library_call="torch.nn.functional.scaled_dot_product_attention "
                      "(forward)"),
     "flash_bwd_dkdv": dict(
-        route="cuda", source="hetu_galvatron_tpu_torch/csrc/flash_bwd.cu",
+        route="cuda",
+        source="hetu_galvatron_tpu_torch/csrc/flash_bwd_sm90.cu",
+        mma_source="hetu_galvatron_tpu_torch/csrc/flash_bwd.cu",
         replaces="hetu_galvatron_tpu/ops/pallas/flash_attention.py:248",
         library_call="scaled_dot_product_attention backward (dq, dk and dv "
                      "in one call: the yardstick of K2 + K3 together)"),
@@ -407,6 +420,9 @@ KERNELS = {
 FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 BWD = ("flash_bwd_dkdv", "flash_bwd_dq")
 QWEN_FP16 = f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} fp16 seg"
+# the same unpacked: where SDPA runs its own flash kernel (a packed row
+# needs a boolean mask, which takes SDPA's slower path)
+QWEN_FP16_UNPACKED = f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} fp16 causal"
 
 
 class SmokeFailure(RuntimeError):
@@ -452,7 +468,9 @@ def kernel_label(mangled: str) -> str:
              "fp16" if rest.startswith("I6__half") else "fp32")
     label = f"{name} {dtype}"
     dp, al = re.search(r"Li(\d+)E", rest), re.search(r"Lb([01])E", rest)
-    if dp:
+    if dp and name.endswith("_wg"):
+        label += f" D={dp.group(1)} wgmma + TMA"
+    elif dp:
         label += f" D<={dp.group(1)}"
     if al:
         label += " 16-byte copies" if al.group(1) == "1" else " element loads"
@@ -796,10 +814,52 @@ def bounds(b, n, kv, s, d, elem, peak_flops, peak_bytes, segs=None,
     return out
 
 
-def time_kernels(case_inputs, reps: int = REPS, plain_groups: int = 1):
+def route_ab(tag, case_inputs, reps: int = REPS):
+    """The route K1 and K2 (and K3) take on one case's inputs, and for K1
+    and K2 on the wgmma route their times against the mma.sync route's on
+    the same inputs, in turns (mma, wgmma, wgmma, mma): ``{kernel:
+    dict(kernel_route, ms, mma_ms, ms_runs, mma_ms_runs)}``; the times of
+    a kernel on the mma route alone are its kernel times."""
+    from hetu_galvatron_tpu_torch.ops import flash_attention as TF
+
+    args, bwd, segs, dseed, kw = case_inputs
+    calls = {
+        "flash_fwd": lambda r: TF.flash_attention_hmajor(
+            *args, segs, dseed, _route=r, **kw),
+        "flash_bwd_dkdv": lambda r: TF.flash_bwd_dkdv(*bwd, _route=r, **kw),
+    }
+    out = {}
+    for k, call in calls.items():
+        ops = args if k == "flash_fwd" else bwd[:4]
+        route = TF.kernel_route(k, *ops)
+        if route != "wgmma":
+            out[k] = dict(kernel_route=route)
+            continue
+        runs = [time_ms(lambda r=r: call(r), reps)
+                for r in ("mma", "wgmma", "wgmma", "mma")]
+        out[k] = dict(kernel_route=route, ms=(runs[1] + runs[2]) / 2,
+                      mma_ms=(runs[0] + runs[3]) / 2,
+                      ms_runs=runs[1:3], mma_ms_runs=[runs[0], runs[3]])
+    out["flash_bwd_dq"] = dict(
+        kernel_route=TF.kernel_route("flash_bwd_dq", *bwd[:4]))
+    log(f"  {tag}: routes " + ", ".join(
+        f"{k} {v['kernel_route']}" for k, v in out.items()))
+    for k, v in out.items():
+        if "mma_ms" in v:
+            log(f"  {tag}: {k:<16} wgmma {v['ms_runs'][0]:.3f} / "
+                f"{v['ms_runs'][1]:.3f} ms against mma.sync "
+                f"{v['mma_ms_runs'][0]:.3f} / {v['mma_ms_runs'][1]:.3f} ms "
+                f"(mma, wgmma, wgmma, mma): {v['mma_ms'] / v['ms']:.2f}x")
+    return out
+
+
+def time_kernels(case_inputs, reps: int = REPS, plain_groups: int = 1,
+                 tag: str = ""):
     """Kernel, plain and library times (ms) of K1-K3 on one case's
     inputs (the plain versions over ``plain_groups`` slices of the kv
-    heads, as :func:`check_case` ran them)."""
+    heads, as :func:`check_case` ran them), and :func:`route_ab`'s routes
+    and mma.sync times; K1's and K2's kernel times are those of the
+    route-by-route runs."""
     import torch
     import torch.nn.functional as F
 
@@ -807,13 +867,16 @@ def time_kernels(case_inputs, reps: int = REPS, plain_groups: int = 1):
 
     args, bwd, segs, dseed, kw = case_inputs
     fwd_p, dkdv_p, dq_p = plain_flash(plain_groups)
+    alt = route_ab(tag, case_inputs, reps)
     times = {
         "flash_fwd": (
-            time_ms(lambda: TF.flash_attention_hmajor(*args, segs, dseed,
-                                                      **kw), reps),
+            alt["flash_fwd"].get("ms") or time_ms(
+                lambda: TF.flash_attention_hmajor(*args, segs, dseed, **kw),
+                reps),
             time_ms(lambda: fwd_p(*args, segs, dseed, **kw), reps)),
         "flash_bwd_dkdv": (
-            time_ms(lambda: TF.flash_bwd_dkdv(*bwd, **kw), reps),
+            alt["flash_bwd_dkdv"].get("ms") or time_ms(
+                lambda: TF.flash_bwd_dkdv(*bwd, **kw), reps),
             time_ms(lambda: dkdv_p(*bwd, **kw), reps)),
         "flash_bwd_dq": (
             time_ms(lambda: TF.flash_bwd_dq(*bwd, **kw), reps),
@@ -842,7 +905,7 @@ def time_kernels(case_inputs, reps: int = REPS, plain_groups: int = 1):
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), do, retain_graph=True), reps)
     return times, {"flash_fwd": lib_fwd, "flash_bwd_dkdv": lib_bwd,
-                   "flash_bwd_dq": lib_bwd}
+                   "flash_bwd_dq": lib_bwd}, alt
 
 
 # ---------------------------------------------------------------------------
@@ -2516,28 +2579,47 @@ def log_times(tag, times, lib, bnd):
 
 
 def flash_report(tag, times, lib, bnd, *, b, s, dtype, segs=None,
-                 causal=True, sk=None):
+                 causal=True, sk=None, alt=None, d=64):
     """K1-K3 at one shape: TFLOP/s over the kept pairs, share of the bound,
     K1 against the library forward and K2 + K3 against the library
-    backward timed beside them. The log also gives the tiles that the rule
-    of ``computed_tiles`` computes at the kernels' tile sizes against the
-    tiles of the causal triangle, derived from the rule and not counted in
-    the kernels."""
+    backward timed beside them; with ``alt`` (:func:`route_ab`) each
+    kernel's route and, for K1 and K2 on the wgmma route, the mma.sync
+    route's time and share beside the new ones, and the goal (half the
+    bound; in bf16 P and dS as hi + lo cap the share at 2/3). The log also
+    gives the tiles that the rule of ``computed_tiles`` computes at the
+    route's tile sizes against the tiles of the causal triangle, derived
+    from the rule and not counted in the kernels."""
     from hetu_galvatron_tpu_torch.ops import flash_attention as TF
 
     out = {}
     sk = sk or s
-    for k, (tq, tk) in TF.tile_sizes(dtype).items():
+    alt = alt or {}
+    for k in FLASH:
+        route = alt.get(k, {}).get("kernel_route")
+        tq, tk = TF.tile_sizes(dtype, route, d)[k]
         ms = times[k][0]
         done = TF.computed_tiles(s, sk, tq, tk, causal=causal, segments=segs)
         tri = TF.computed_tiles(s, sk, tq, tk, causal=causal)
         out[k] = dict(tflops=bnd[k]["flops"] / (ms * 1e-3) / 1e12,
                       share_of_bound=bnd[k]["bound_ms"] / ms)
+        if route is not None:
+            out[k]["kernel_route"] = route
         log(f"  {tag}: {k:<16} {out[k]['tflops']:.1f} TFLOP/s over the kept "
             f"pairs, {100 * out[k]['share_of_bound']:.1f}% of the bound; "
             f"the tile rule computes {int(done.sum()) * (b // done.shape[0])}"
             f" of {int(tri.sum()) * b} {'causal' if causal else 'all'} "
             f"{tq}x{tk} tiles")
+        if "mma_ms" in alt.get(k, {}):
+            mma = alt[k]["mma_ms"]
+            share = bnd[k]["bound_ms"] / mma
+            out[k].update(mma_ms=mma, mma_share_of_bound=share,
+                          speedup_over_mma=mma / ms)
+            cap = (" (bf16's hi + lo cap: 66.7%)"
+                   if str(dtype) == "torch.bfloat16" else "")
+            log(f"  {tag}: {k:<16} wgmma {100 * out[k]['share_of_bound']:.1f}"
+                f"% of the bound against mma.sync {100 * share:.1f}%; goal "
+                f"50%{cap}: "
+                f"{'met' if out[k]['share_of_bound'] >= 0.5 else 'missed'}")
     fwd, fwd_lib = times["flash_fwd"][0], lib["flash_fwd"]
     log(f"  {tag}: K1 {fwd:.3f} ms against the library forward "
         f"{fwd_lib:.3f} ms: {'faster' if fwd < fwd_lib else 'slower'} "
@@ -2570,14 +2652,14 @@ def check_path_flash(label, tag, shape, segs, peak_flops, peak_bytes,
                              dtype=torch.bfloat16, causal=causal, seg=segs,
                              rate=0.0, layout=layout,
                              plain_groups=plain_groups)
-    times, lib = time_kernels(inputs, reps=BIG_REPS,
-                              plain_groups=plain_groups)
+    times, lib, alt = time_kernels(inputs, reps=BIG_REPS,
+                                   plain_groups=plain_groups, tag=label)
     bnd = bounds(b, n, kv, s, d, 2, peak_flops, peak_bytes, segs=inputs[2],
                  causal=causal, sk=sk)
     log_times(label, times, lib, bnd)
     report = flash_report(label, times, lib, bnd, b=b, s=s,
                           dtype=torch.bfloat16, segs=inputs[2],
-                          causal=causal, sk=sk)
+                          causal=causal, sk=sk, alt=alt, d=d)
     if fp16_ms is not None:
         log(f"  {label}: K1 bf16 {times['flash_fwd'][0]:.3f} ms (P as hi + "
             f"lo) against fp16 {fp16_ms['flash_fwd']:.3f} ms (one "
@@ -2588,10 +2670,20 @@ def check_path_flash(label, tag, shape, segs, peak_flops, peak_bytes,
     timing = {k: dict(ms=times[k][0], plain_ms=times[k][1],
                       library_ms=lib[k], bound_ms=bnd[k]["bound_ms"],
                       bound_by=bnd[k]["bound_by"], flops=bnd[k]["flops"],
-                      bytes=bnd[k]["bytes"], shape=tag) for k in times}
+                      bytes=bnd[k]["bytes"], shape=tag,
+                      **route_keys(report[k])) for k in times}
     return {"checks": {k: [dict(r, case=tag) for r in recs]
                        for k, recs in res.items()}, "timing": timing,
             "report": report}
+
+
+def route_keys(rep):
+    """The route keys of one kernel's :func:`flash_report` entry that a
+    path block carries: its route, share of the bound and, on the wgmma
+    route, the mma.sync time and share beside them."""
+    keys = ("kernel_route", "share_of_bound", "mma_ms", "mma_share_of_bound",
+            "speedup_over_mma")
+    return {k: rep[k] for k in keys if k in rep}
 
 
 def check_ce(peak_bytes):
@@ -4471,6 +4563,12 @@ def check_pipe_kernels(checks, peak_flops, peak_bytes):
     for res in flash.values():
         for k, recs in res["checks"].items():
             checks[k] += recs
+    rep = flash[PIPE_QWEN]["report"]["flash_bwd_dkdv"]
+    if "mma_share_of_bound" in rep:
+        log(f"  pipeline Qwen shape: K2 at one row and {QK} kv heads "
+            f"{100 * rep['share_of_bound']:.1f}% of the bound against the "
+            f"mma.sync kernel's {100 * rep['mma_share_of_bound']:.1f}% in "
+            "this call")
     torch.cuda.empty_cache()
     return flash
 
@@ -5801,6 +5899,9 @@ def run(torch, _build, TF) -> int:
         (QWEN_FP16,
          dict(b=QB, n=QN, kv=QK, s=QS, sk=QS, d=QD, dtype=torch.float16,
               causal=True, seg=True, rate=0.0, layout="fused")),
+        (QWEN_FP16_UNPACKED,
+         dict(b=QB, n=QN, kv=QK, s=QS, sk=QS, d=QD, dtype=torch.float16,
+              causal=True, seg=False, rate=0.0, layout="fused")),
     ]
     for name_k, recs in slice_res.items():
         checks[name_k] += [dict(r, case="slice bf16") for r in recs]
@@ -5808,33 +5909,48 @@ def run(torch, _build, TF) -> int:
         res, inputs = check_case(tag, **kw)
         for name_k, recs in res.items():
             checks[name_k] += [dict(r, case=tag) for r in recs]
-        if tag == QWEN_FP16:
+        if tag in (QWEN_FP16, QWEN_FP16_UNPACKED):
             # fp16 rounds P (and K2/K3's dS) once where bf16 carries them
-            # as hi + lo: the two dtypes' times show what the split costs
-            args_h, bwd, segs_h, dseed_h, kw_h = inputs
-            fp16_ms = {k: time_ms(lambda fn=getattr(TF, k): fn(*bwd, **kw_h),
-                                  BIG_REPS) for k in BWD}
-            fp16_ms["flash_fwd"] = time_ms(
-                lambda: TF.flash_attention_hmajor(*args_h, segs_h, dseed_h,
-                                                  **kw_h), BIG_REPS)
-            log(f"  {tag}: K1 {fp16_ms['flash_fwd']:.3f} ms, K2 "
-                f"{fp16_ms['flash_bwd_dkdv']:.3f} ms, K3 "
-                f"{fp16_ms['flash_bwd_dq']:.3f} ms")
+            # as hi + lo: the two dtypes' times show what the split costs,
+            # and fp16 is where the goal "no slower than SDPA" is read
+            t16, lib16, _ = time_kernels(inputs, BIG_REPS, tag=tag)
+            ms16 = {k: t16[k][0] for k in FLASH}
+            log(f"  {tag}: K1 {ms16['flash_fwd']:.3f} ms, K2 "
+                f"{ms16['flash_bwd_dkdv']:.3f} ms, K3 "
+                f"{ms16['flash_bwd_dq']:.3f} ms")
+            pair16 = ms16["flash_bwd_dkdv"] + ms16["flash_bwd_dq"]
+            k1_met = ms16["flash_fwd"] <= lib16["flash_fwd"]
+            pair_met = pair16 <= lib16["flash_bwd_dkdv"]
+            log(f"  {tag}: goal no slower than SDPA in fp16: K1 "
+                f"{ms16['flash_fwd']:.3f} ms against "
+                f"{lib16['flash_fwd']:.3f} ({'met' if k1_met else 'missed'})"
+                f"; K2 + K3 {pair16:.3f} ms against the backward "
+                f"{lib16['flash_bwd_dkdv']:.3f} "
+                f"({'met' if pair_met else 'missed'})")
+            if tag == QWEN_FP16:
+                fp16_ms = ms16
         del inputs
     auto = [dict(r, case=f"slice {tag}") for dtype, tag in
             ((torch.bfloat16, "bf16"), (torch.float32, "fp32"))
             for r in check_autograd(f"slice {tag}", b=B, n=N, s=S, d=D,
                                     dtype=dtype)]
-    times, lib = time_kernels(slice_inputs)
+    times, lib, gpt2_alt = time_kernels(slice_inputs, tag="GPT-2 shape")
     bnd = bounds(B, N, N, S, D, 2, peak_flops, peak_bytes)
     log_times("GPT-2 shape", times, lib, bnd)
     gpt2_rep = flash_report("GPT-2 shape", times, lib, bnd, b=B, s=S,
-                            dtype=torch.bfloat16)
+                            dtype=torch.bfloat16, alt=gpt2_alt, d=D)
     del slice_inputs
     qwen_flash = check_path_flash(
         "Qwen shape", f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} bf16 seg",
         (QB, QN, QK, QS, QD), True, peak_flops, peak_bytes, fp16_ms)
     for name_k, recs in qwen_flash["checks"].items():
+        checks[name_k] += recs
+    # phase 17's compiled Qwen cell: the same widths on unpacked rows
+    qwen_unpacked = check_path_flash(
+        "Qwen shape unpacked", f"qwen B={QB} N={QN} K={QK} S={QS} D={QD} "
+        "bf16 causal unpacked", (QB, QN, QK, QS, QD), False, peak_flops,
+        peak_bytes)
+    for name_k, recs in qwen_unpacked["checks"].items():
         checks[name_k] += recs
     # removed at exit, also when a phase fails
     tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
@@ -5947,7 +6063,8 @@ def run(torch, _build, TF) -> int:
         paths = {}
         if k in FLASH:
             gpt2_timing = dict(ms=times[k][0], plain_ms=times[k][1],
-                               library_ms=lib[k], **bnd[k])
+                               library_ms=lib[k], **bnd[k],
+                               **route_keys(gpt2_rep[k]))
             paths["gpt2-small"] = path_block(
                 k, gpt2, gpt2_timing,
                 max_err(checks, k, "slice bf16", ("elementwise",)),
@@ -6039,7 +6156,8 @@ def path_block(k, run, timing, err, shape):
                 plain_ms=timing["plain_ms"],
                 library_ms=timing["library_ms"],
                 bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
-                flops=timing["flops"], bytes=timing["bytes"], shape=shape)
+                flops=timing["flops"], bytes=timing["bytes"], shape=shape,
+                **route_keys(timing))
 
 
 def zoo_paths(peak_flops, llama_prefix, llama_stats):
@@ -6156,6 +6274,8 @@ def kernel_rows(checks, zoo_k, zoo, earlier=None):
                         "1e-4 in fp32, 2e-2 in bf16/fp16")
             tol = TOL_FP32
         row = dict(name=k, route=meta["route"], source=meta["source"],
+                   **({"mma_source": meta["mma_source"]}
+                      if "mma_source" in meta else {}),
                    replaces=meta["replaces"],
                    library_call=meta["library_call"], **paths[own],
                    tol=tol, tol_rule=tol_rule, paths=paths)

@@ -24,7 +24,12 @@
 // the causal pairs kept): K2 0.1893 ms, K3 0.1419 ms. Both kernels are
 // bound by operations at both shapes (chip_smoke.py::bounds).
 //
-// Two instantiations, chosen by dtype (never after a failure):
+// Routes, chosen before the launch by ops/flash_attention.py::kernel_route
+// (never after a failure): K2 takes the warp-specialised wgmma + TMA
+// kernel of flash_bwd_sm90.cu in bf16 / fp16 at D = 64 or 128 on operands
+// TMA can describe (every main path); the kernels below serve every other
+// case, K3 always, and K2's mma.sync kernel is the yardstick chip_smoke.py
+// times the wgmma kernel against.
 //
 // * bf16 / fp16: the tensor-core kernels (*_tc). What held the first
 //   version (fp32 FMA, 170-250x its bound) back, and what this one does:
@@ -103,10 +108,10 @@
 //
 // Not taken: one fused backward with an atomic fp32 dq (FlashAttention-2's
 // layout) would drop K3's recompute of S and dP (7 tile products to 5) but
-// changes K3's launch count and the kernel table. Left for later work: the
-// wgmma + TMA + warp-specialised form (producer warp, consumer warpgroups,
-// m64 products from shared memory), and a persistent schedule.
-#include "flash_bwd.cuh"
+// changes K3's launch count and the kernel table, and atomics would make
+// dq's bits depend on the schedule. K2's wgmma + TMA form is
+// flash_bwd_sm90.cu; K3's is later work on the same header.
+#include "flash_sm90.cuh"
 
 namespace galv {
 
@@ -466,9 +471,12 @@ struct DkdvTc {
 
 }  // namespace galv
 
-// Operands: inputs, segment ids [B, S] (null without segments), outputs. dims: B, N, K, S, Sk, D; strides: (batch,
-// head, position) of q, k, v, dO, dk, dv. Returns cudaGetLastError() after
-// the launch (0 = launched).
+// Operands: inputs, segment ids [B, S] (null without segments), outputs.
+// dims: B, N, K, S, Sk, D; strides: (batch, head, position) of q, k, v,
+// dO, dk, dv. `route` as galv_flash_fwd's: the fp32 FMA kernel, the
+// mma.sync kernel or the wgmma kernel (flash_bwd_sm90.cu). Returns
+// cudaGetLastError() after the launch (0 = launched),
+// cudaErrorNotSupported for a route the operands cannot take.
 extern "C" int galv_flash_bwd_dkdv(int dtype, const void* q, const void* k,
                                    const void* v, const void* dO,
                                    const float* lse, const float* delta,
@@ -477,12 +485,14 @@ extern "C" int galv_flash_bwd_dkdv(int dtype, const void* q, const void* k,
                                    const long long* strides, int causal,
                                    float scale, int dropout, uint32_t seed,
                                    uint32_t threshold, float keep_prob,
-                                   void* stream) {
+                                   int route, void* stream) {
   using namespace galv;
-  return launch_bwd<DkdvTc>(
-      dtype,
-      bwd_call(q, k, v, dO, lse, delta, seg, dk, dv, dims,
-               strides, causal, scale, dropout, seed, threshold, keep_prob,
-               stream),
-      launch_dkdv_f32);
+  const BwdCall c = bwd_call(q, k, v, dO, lse, delta, seg, dk, dv, dims,
+                             strides, causal, scale, dropout, seed,
+                             threshold, keep_prob, stream);
+  if (route == kRouteWgmma) return launch_dkdv_sm90(dtype, c);
+  if ((route == kRouteFma) != (dtype == kF32) ||
+      (route != kRouteFma && route != kRouteMma))
+    return (int)cudaErrorNotSupported;
+  return launch_bwd<DkdvTc>(dtype, c, launch_dkdv_f32);
 }

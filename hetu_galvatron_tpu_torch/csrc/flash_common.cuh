@@ -118,4 +118,9 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 // dtype codes shared with ops/_build.py
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
+// the kernel a K1 / K2 launch runs, chosen by ops/flash_attention.py::
+// kernel_route before the launch: the fp32 FMA kernel, the mma.sync
+// tensor-core kernel, or the warp-specialised wgmma + TMA kernel
+enum Route { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2 };
+
 }  // namespace galv

@@ -16,9 +16,17 @@
 // causal pairs kept): 0.0946 ms, bound by operations
 // (chip_smoke.py::bounds).
 //
-// Two instantiations, chosen by dtype (never after a failure):
+// Three routes, chosen before the launch by ops/flash_attention.py::
+// kernel_route (never after a failure):
 //
-// * bf16 / fp16: the tensor-core kernel (flash_fwd_kernel_tc). The first
+// * wgmma: bf16 / fp16 at D = 64 or 128 on operands TMA can describe (every
+//   main path): the warp-specialised wgmma + TMA kernel of
+//   flash_fwd_sm90.cu, whose note says what held the kernel below back.
+//
+// * mma: every other bf16 / fp16 case (D <= 32, D between buckets, rows
+//   whose base or strides are not multiples of 8 elements), and the
+//   yardstick chip_smoke.py times the wgmma kernel against: the
+//   tensor-core kernel below (flash_fwd_kernel_tc). The first
 //   version (fp32 FMA, 80-220x its bound at the two shapes) widened every
 //   tile to fp32 in shared memory, multiplied in scalar FMA loops, copied
 //   synchronously with a barrier between every step, and computed every
@@ -68,14 +76,14 @@
 //   the instantiation with element-wise loads and stores (AL = false): 12
 //   tensor-core instantiations (bf16 and fp16, three DP, AL or not).
 //
-// * fp32: the first version's FMA kernel, unchanged: 64 x 64 tiles of fp32
+// * fma: fp32, the first version's FMA kernel, unchanged: 64 x 64 tiles of fp32
 //   in shared memory, 256 threads as a 16 x 16 grid, tiles past the
 //   diagonal skipped. TF32 tensor cores would miss the 1e-4 fp32 checks of
 //   chip_smoke.py and its fp32 reference runs.
 //
 // Both mask a ragged tail (S or Sk not a multiple of 64) in-kernel, so any
 // length runs.
-#include "flash_tc.cuh"
+#include "flash_sm90.cuh"
 
 namespace galv {
 
@@ -219,25 +227,6 @@ __global__ void __launch_bounds__(NT)
       lse[((long long)b * dm.N + n) * dm.S + qpos] = m[i] + logf(lf);
   }
 }
-
-struct FwdCall {
-  const void *q, *k, *v;
-  const int* seg;
-  void* o;
-  float* lse;
-  Dims dm;
-  const long long* st;  // (batch, head, position) strides of q, k, v, o
-  int causal;
-  float scale;
-  DropoutArgs dr;
-  cudaStream_t stream;
-  bool aligned() const {
-    return rows_16b(q, strides_at(st, 0), dm.D) &&
-           rows_16b(k, strides_at(st, 1), dm.D) &&
-           rows_16b(v, strides_at(st, 2), dm.D) &&
-           rows_16b(o, strides_at(st, 3), dm.D);
-  }
-};
 
 static int launch_fwd_f32(const FwdCall& c) {
   const int LD = c.dm.D + 1;
@@ -510,16 +499,18 @@ struct FwdTc {
 }  // namespace galv
 
 // Operands: inputs, segment ids (or null), outputs. dims: B, N, K, S, Sk,
-// D; strides: (batch, head, position) of q, k, v, o. Returns
-// cudaGetLastError() after the launch (0 = launched). fp32 runs the FMA
-// kernel, bf16 / fp16 the tensor-core kernel.
+// D; strides: (batch, head, position) of q, k, v, o. `route` (Route in
+// flash_common.cuh, chosen by ops/flash_attention.py::kernel_route): the
+// fp32 FMA kernel, the mma.sync kernel (bf16 / fp16) or the wgmma kernel
+// (flash_fwd_sm90.cu). Returns cudaGetLastError() after the launch (0 =
+// launched), cudaErrorNotSupported for a route the operands cannot take.
 extern "C" int galv_flash_fwd(int dtype, const void* q, const void* k,
                               const void* v, const int* seg, void* o,
                               float* lse, const long long* dims,
                               const long long* strides, int causal,
                               float scale, int dropout, uint32_t seed,
                               uint32_t threshold, float keep_prob,
-                              void* stream) {
+                              int route, void* stream) {
   using namespace galv;
   const FwdCall c{q, k, v, seg, o, lse,
                   Dims{(int)dims[0], (int)dims[1], (int)dims[2],
@@ -527,6 +518,10 @@ extern "C" int galv_flash_fwd(int dtype, const void* q, const void* k,
                   strides, causal, scale,
                   DropoutArgs{dropout, seed, threshold, keep_prob},
                   static_cast<cudaStream_t>(stream)};
+  if (route == kRouteWgmma) return launch_fwd_sm90(dtype, c);
+  if ((route == kRouteFma) != (dtype == kF32) ||
+      (route != kRouteFma && route != kRouteMma))
+    return (int)cudaErrorNotSupported;
   switch (dtype) {
     case kF32:
       return launch_fwd_f32(c);

@@ -108,11 +108,18 @@ __device__ __forceinline__ int2 tile_range(const int* sb, int p0, int rows,
                    __reduce_max_sync(0xffffffffu, hi));
 }
 
-// Flags of the streamed tiles t in [t0, t1) (rows t * trows, up to tlimit)
-// against the block's fixed tile (rows [f0, f0 + frows), up to flimit), by
-// their segment-id ranges: 0 when the ranges do not overlap (the pair is
-// skipped), 2 when both tiles hold one and the same id (no segment mask),
-// else 1. Warps take the tiles in turn; sync the block before reading.
+// The flag of a streamed tile of segment-id range r against the fixed
+// tile's fr: 0 when the ranges do not overlap (the pair is skipped), 2
+// when both tiles hold one and the same id (no segment mask), else 1.
+__device__ __forceinline__ int pair_flag(int2 fr, int2 r) {
+  return !(r.x <= fr.y && fr.x <= r.y)
+             ? 0
+             : (r.x == r.y && fr.x == fr.y && r.x == fr.x) ? 2 : 1;
+}
+
+// Flags (pair_flag) of the streamed tiles t in [t0, t1) (rows t * trows,
+// up to tlimit) against the block's fixed tile (rows [f0, f0 + frows), up
+// to flimit). Warps take the tiles in turn; sync the block before reading.
 // Kept in shared memory, so the tile loop carries no ranges in registers.
 __device__ __forceinline__ void tile_flags(unsigned char* flags,
                                            const int* sb, int f0, int frows,
@@ -121,10 +128,7 @@ __device__ __forceinline__ void tile_flags(unsigned char* flags,
   const int2 fr = tile_range(sb, f0, frows, flimit);
   for (int t = t0 + (int)(threadIdx.x >> 5); t < t1; t += TC_NT / 32) {
     const int2 r = tile_range(sb, t * trows, trows, tlimit);
-    if ((threadIdx.x & 31) == 0)
-      flags[t] = !(r.x <= fr.y && fr.x <= r.y)
-                     ? 0
-                     : (r.x == r.y && fr.x == fr.y && r.x == fr.x) ? 2 : 1;
+    if ((threadIdx.x & 31) == 0) flags[t] = pair_flag(fr, r);
   }
 }
 
@@ -159,6 +163,25 @@ static inline bool rows_16b(const void* p, Strides s, int D) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 &&
          s.h % 8 == 0 && s.s % 8 == 0 && D % 8 == 0;
 }
+
+struct FwdCall {
+  const void *q, *k, *v;
+  const int* seg;
+  void* o;
+  float* lse;
+  Dims dm;
+  const long long* st;  // (batch, head, position) strides of q, k, v, o
+  int causal;
+  float scale;
+  DropoutArgs dr;
+  cudaStream_t stream;
+  bool aligned() const {
+    return rows_16b(q, strides_at(st, 0), dm.D) &&
+           rows_16b(k, strides_at(st, 1), dm.D) &&
+           rows_16b(v, strides_at(st, 2), dm.D) &&
+           rows_16b(o, strides_at(st, 3), dm.D);
+  }
+};
 
 // L<T, DP, AL>::run(c) launches one instantiation: DP = 32, 64 or 128, the
 // least that holds D (zero-padded), AL = 16-byte copies (c.aligned()).

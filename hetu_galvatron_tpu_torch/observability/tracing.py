@@ -32,6 +32,10 @@ from hetu_galvatron_tpu_torch.observability.registry import (
 
 _tls = threading.local()
 
+# seconds the host waits, with the card idle, after a traced window's start
+# and before its stop (``TraceCapture``)
+WINDOW_MARGIN_S = 0.1
+
 
 @contextmanager
 def span(name: str, registry: Optional[MetricsRegistry] = None):
@@ -73,6 +77,19 @@ class TraceCapture:
     ``window_ms`` is their elapsed time: the traced iterations' own
     CUDA-event time, which a trace's device wall can be held against. One
     capture per process lifetime; rank-gating is the caller's job.
+
+    The profiler keeps only the device activity whose timestamp, moved
+    onto the host's clock, falls between its start and its stop. Where the
+    card's clock, so moved, runs ahead of the host's, the first kernels of
+    the window would land before the start and be dropped, so that the
+    trace would count fewer launches than ran: on an H100, a window that
+    began a CUDA-graph replay lost its first kernels now and then, the
+    first one it kept stamped before the host had launched it. With CUDA
+    traced the card is therefore drained before the start, and the host
+    waits ``WINDOW_MARGIN_S`` after the start and before the stop, with
+    the card idle, outside the two CUDA events.
+    ``tools/torch_trace_window_check.py`` counts what a window keeps with
+    the margin off and on.
     """
 
     def __init__(self, trace_dir: str, start_iter: int = 0,
@@ -104,9 +121,14 @@ class TraceCapture:
             acts = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
+            cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+            if cuda:
+                torch.cuda.synchronize()
             self._prof = profile(activities=acts)
             self._prof.start()
-            if torch.cuda.is_available() and torch.cuda.is_initialized():
+            if torch.cuda.is_available():
+                time.sleep(WINDOW_MARGIN_S)
+            if cuda:
                 self._ev0 = torch.cuda.Event(enable_timing=True)
                 self._ev0.record()
             self.active = True
@@ -138,6 +160,8 @@ class TraceCapture:
             self._ev0 = None
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            time.sleep(WINDOW_MARGIN_S)
         prof.stop()
         run = os.path.join(self.trace_dir, "plugins", "profile",
                            time.strftime("%Y_%m_%d_%H_%M_%S"))

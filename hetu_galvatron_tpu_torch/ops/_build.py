@@ -49,14 +49,16 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 # argtypes of every exported launch function (csrc/*.cu). Flash: dtype
 # code, input pointers, segment ids, output pointers, dims, strides, causal,
-# scale, dropout on/seed/threshold/keep_prob, stream. Cross-entropy: dtype
-# code, input pointers, output pointers, T, V, row strides, stream.
+# scale, dropout on/seed/threshold/keep_prob, the route code (K1 and K2),
+# stream. Cross-entropy: dtype code, input pointers, output pointers, T, V,
+# row strides, stream.
 SIGNATURES = {
     "galv_ce_fwd": [_I, _P, _P, _P, _P, _LL, _LL, _LL, _P],
     "galv_ce_bwd": [_I, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P],
     "galv_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _U32,
-                       _U32, _F, _P],
-    "galv_flash_bwd_dkdv": [_I, *[_P] * 11, _I, _F, _I, _U32, _U32, _F, _P],
+                       _U32, _F, _I, _P],
+    "galv_flash_bwd_dkdv": [_I, *[_P] * 11, _I, _F, _I, _U32, _U32, _F, _I,
+                            _P],
     "galv_flash_bwd_dq": [_I, *[_P] * 10, _I, _F, _I, _U32, _U32, _F, _P],
 }
 

@@ -16,12 +16,17 @@ q-head n to kv-head ``n // (N // K)``. :func:`flash_sdpa` is the drop-in
 Unlike the Pallas kernels the CUDA kernels mask a ragged tail, so any S
 runs and there is no dense fallback for untileable lengths.
 
-K1, K2 and K3 each take one of two instantiations by dtype: bf16 and fp16
-run on the tensor cores and compute a (q-tile, k-tile) pair only where
-causality and the tiles' segment-id ranges allow, taking the ranges from
-the ids they load; :func:`computed_tiles` is that rule in torch, the
-reference the tests hold it to, and :func:`tile_sizes` gives each kernel's
-tiles. fp32 runs the FMA kernels.
+Each launch takes a route, chosen here before it by :func:`kernel_route`
+from the dtype, D, pointers and strides: fp32 runs the FMA kernels; bf16
+and fp16 run K1 and K2 as warp-specialised ``wgmma`` + TMA kernels
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``) at D = 64 or 128
+on operands TMA can describe, and every other 16-bit case, and K3 always,
+on the ``mma.sync`` kernels. The C side refuses a route its operands cannot
+take and the wrapper raises; nothing falls back. The 16-bit kernels compute
+a (q-tile, k-tile) pair only where causality and the tiles' segment-id
+ranges allow, taking the ranges from the ids they load;
+:func:`computed_tiles` is that rule in torch, the reference the tests hold
+it to, and :func:`tile_sizes` gives each kernel's tiles on each route.
 """
 
 from __future__ import annotations
@@ -171,16 +176,54 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, segments=None,
 # ---------------------------------------------------------------------------
 
 
-def tile_sizes(dtype=torch.bfloat16):
-    """(q rows, k rows) of a tile of K1, K2 and K3 (``csrc/flash_tc.cuh``,
-    ``Tc``): on the tensor cores K1 holds 64 q rows and streams 64 k rows,
-    K2 holds 64 k rows and streams 32 q rows, K3 holds 64 q rows and
-    streams 32 k rows; fp32 runs 64 x 64 tiles."""
-    if dtype == torch.float32:
+def tile_sizes(dtype=torch.bfloat16, route=None, head_dim=64):
+    """(q rows, k rows) of a tile of K1, K2 and K3 on ``route`` (by default
+    the dtype's FMA or ``mma.sync`` route). ``mma``: ``csrc/flash_tc.cuh``
+    ``Tc``, K1 holds 64 q rows and streams 64 k rows, K2 holds 64 k rows
+    and streams 32 q rows, K3 holds 64 q rows and streams 32 k rows.
+    ``wgmma`` (``csrc/flash_sm90.cuh``): K1 holds 128 q rows and streams
+    128 k rows at D=64, 64 at D=128; K2 holds 128 k rows and streams 64 q
+    rows; K3 keeps its ``mma`` tiles. ``fma`` (fp32): 64 x 64."""
+    if route is None:
+        route = "fma" if dtype == torch.float32 else "mma"
+    if route == "fma":
         return {"flash_fwd": (64, 64), "flash_bwd_dkdv": (64, 64),
                 "flash_bwd_dq": (64, 64)}
+    if route == "wgmma":
+        return {"flash_fwd": (128, 128 if head_dim <= 64 else 64),
+                "flash_bwd_dkdv": (64, 128), "flash_bwd_dq": (64, 32)}
     return {"flash_fwd": (64, 64), "flash_bwd_dkdv": (32, 64),
             "flash_bwd_dq": (64, 32)}
+
+
+# route codes of csrc/flash_common.cuh (Route)
+ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}
+# the kernels with a wgmma + TMA route
+WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dkdv")
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA describes ``t`` (csrc/flash_sm90.cuh ``tma_ok``): a base on 16
+    bytes and (batch, head, position) strides in multiples of 8 elements,
+    a unit stride along D."""
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(st % 8 == 0 for st in t.stride()[:3]))
+
+
+def kernel_route(name: str, *operands: torch.Tensor) -> str:
+    """The kernel ``name`` (``flash_fwd``, ``flash_bwd_dkdv``,
+    ``flash_bwd_dq``) runs on these rank-4 operands (inputs and outputs):
+    ``fma`` for fp32; ``wgmma`` for K1 and K2 in bf16 / fp16 at D = 64 or
+    128 when every operand passes :func:`_tma_ok`; else ``mma``. Decided
+    before the launch, never after a failure; the C side refuses the same
+    cases."""
+    q = operands[0]
+    if q.dtype == torch.float32:
+        return "fma"
+    if (name in WGMMA_KERNELS and q.shape[-1] in (64, 128)
+            and all(_tma_ok(t) for t in operands)):
+        return "wgmma"
+    return "mma"
 
 
 def tile_segment_ranges(segments: torch.Tensor, tile: int) -> torch.Tensor:
@@ -279,23 +322,29 @@ def _on_cuda(name: str, *tensors) -> bool:
 
 
 def _launch(name, inputs, outputs, segments, dropout_seed, *, causal,
-            dropout_rate):
+            dropout_rate, route=None):
     """Launch ``galv_<name>`` (csrc/*.cu) on the current stream: the
     pointers of ``inputs``, the segment ids, the pointers of ``outputs``,
     dims, the (batch, head, position) strides of every rank-4 operand in
-    that order, then the scalars. Raises when the launch is refused."""
+    that order, then the scalars and, for K1 and K2, the route code
+    (:func:`kernel_route` unless ``route`` names one: ``chip_smoke.py`` and
+    the card's tests time the ``mma`` kernels that way). Raises when the
+    launch is refused."""
     q, k = inputs[0], inputs[1]
     B, N, S, D = q.shape
     K, Sk = k.shape[1:3]
     seg = (None if segments is None else
            segments.to(device=q.device, dtype=torch.int32).contiguous())
-    strides = [st for t in (*inputs, *outputs) if t.dim() == 4
-               for st in t.stride()[:3]]
+    rank4 = [t for t in (*inputs, *outputs) if t.dim() == 4]
+    strides = [st for t in rank4 for st in t.stride()[:3]]
     if dropout_rate > 0.0:
         drop = (1, int(dropout_seed) & _U32, keep_threshold(dropout_rate),
                 1.0 - dropout_rate)
     else:
         drop = (0, 0, 0, 1.0)
+    tail = ()
+    if name in WGMMA_KERNELS:
+        tail = (ROUTES[route or kernel_route(name, *rank4)],)
     fn = getattr(_build.load_library(), "galv_" + name)
     with torch.cuda.device(q.device):
         code = fn(_build.DTYPE_CODES[str(q.dtype)],
@@ -304,7 +353,7 @@ def _launch(name, inputs, outputs, segments, dropout_seed, *, causal,
                   *(t.data_ptr() for t in outputs),
                   _build.int64_array((B, N, K, S, Sk, D)),
                   _build.int64_array(strides), int(causal),
-                  1.0 / math.sqrt(D), *drop,
+                  1.0 / math.sqrt(D), *drop, *tail,
                   torch.cuda.current_stream(q.device).cuda_stream)
     # ``seg`` may be freed now: the caching allocator reuses its memory
     # only after the work enqueued on this stream
@@ -312,10 +361,12 @@ def _launch(name, inputs, outputs, segments, dropout_seed, *, causal,
 
 
 def flash_attention_hmajor(q, k, v, segments=None, dropout_seed=None, *,
-                           causal: bool = True, dropout_rate: float = 0.0):
+                           causal: bool = True, dropout_rate: float = 0.0,
+                           _route: Optional[str] = None):
     """K1: q [B,N,S,D], k/v [B,K,Sk,D] -> (o [B,N,S,D], lse [B,N,S] fp32).
     ``segments`` [B, S] int masks cross-document pairs; ``dropout_seed``
-    (int) drives the in-kernel counter-based dropout."""
+    (int) drives the in-kernel counter-based dropout. ``_route`` is
+    :func:`_launch`'s internal ``route``."""
     _check(q, k, v, segments, dropout_seed, causal, dropout_rate)
     kw = dict(causal=causal, dropout_rate=dropout_rate)
     if not _on_cuda("flash_fwd", q, k, v):
@@ -325,14 +376,17 @@ def flash_attention_hmajor(q, k, v, segments=None, dropout_seed=None, *,
     o = torch.empty((B, S, N, D), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", (q, k, v), (o, lse), segments, dropout_seed, **kw)
+    _launch("flash_fwd", (q, k, v), (o, lse), segments, dropout_seed,
+            route=_route, **kw)
     return o, lse
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, segments=None, dropout_seed=None,
-                   *, causal: bool = True, dropout_rate: float = 0.0):
+                   *, causal: bool = True, dropout_rate: float = 0.0,
+                   _route: Optional[str] = None):
     """K2: (dk, dv) [B,K,Sk,D] from q/do [B,N,S,D], k/v, and fp32 lse and
-    delta [B,N,S] (contiguous)."""
+    delta [B,N,S] (contiguous). ``_route`` is :func:`_launch`'s internal
+    ``route``."""
     _check(q, k, v, segments, dropout_seed, causal, dropout_rate)
     kw = dict(causal=causal, dropout_rate=dropout_rate)
     if not _on_cuda("flash_bwd_dkdv", q, k, v, do):
@@ -344,7 +398,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, segments=None, dropout_seed=None,
                      device=q.device).transpose(1, 2)
     dv = torch.empty_like(dk)
     _launch("flash_bwd_dkdv", (q, k, v, do, lse, delta), (dk, dv), segments,
-            dropout_seed, **kw)
+            dropout_seed, route=_route, **kw)
     return dk, dv
 
 

@@ -6,6 +6,9 @@ themselves are compared with those plain versions on the card
 (``tests/test_torch_flash_cuda.py`` and ``chip_smoke.py``).
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -221,3 +224,99 @@ def test_torch_flash_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="dropout_seed"):
         TF.flash_attention_hmajor(*(torch.zeros(1, 2, 8, 16)
                                     for _ in range(3)), dropout_rate=0.1)
+
+
+# ---------------------------------------------------------------------------
+# the route each kernel takes (ops/flash_attention.py::kernel_route)
+# ---------------------------------------------------------------------------
+
+BF16, FP16, FP32 = torch.bfloat16, torch.float16, torch.float32
+# (B, S, N, K, D, dtype, layout) -> routes of K1, K2, K3. The main paths
+# take q/k/v as views of the fused qkv projection ("fused"), T5's
+# cross-attention q from its own projection and k/v from a fused kv one
+# ("cross"); the phase-3 cases of chip_smoke.py are contiguous
+# ("hmajor") or rows d + 3 elements apart ("unaligned"). A fused view's
+# batch stride is S (N + 2K) D, a multiple of 8 for any S when (N + 2K) D
+# is, so the main paths are built at S=16.
+ROUTE_CASES = {
+    "gpt2": (8, 16, 12, 12, 64, BF16, "fused", "wgmma"),
+    "qwen": (2, 16, 28, 4, 128, BF16, "fused", "wgmma"),
+    "qwen_b1": (1, 16, 28, 4, 128, BF16, "fused", "wgmma"),
+    "qwen_tp2": (2, 16, 14, 2, 128, BF16, "fused", "wgmma"),
+    "qwen_fp16": (2, 16, 28, 4, 128, FP16, "fused", "wgmma"),
+    "mixtral": (2, 16, 32, 8, 128, BF16, "fused", "wgmma"),
+    "llama": (1, 16, 64, 8, 128, BF16, "fused", "wgmma"),
+    "bert": (2, 16, 16, 16, 64, BF16, "fused", "wgmma"),
+    "t5_self": (2, 16, 32, 32, 64, BF16, "fused", "wgmma"),
+    "t5_cross": (2, 16, 32, 32, 64, BF16, "cross", "wgmma"),
+    "gqa_s200": (2, 200, 8, 2, 64, BF16, "hmajor", "wgmma"),
+    "ragged_s130_d128": (1, 130, 4, 4, 128, BF16, "hmajor", "wgmma"),
+    "fp16_s200": (2, 200, 8, 2, 64, FP16, "hmajor", "wgmma"),
+    "d32": (3, 77, 6, 3, 32, BF16, "hmajor", "mma"),
+    "d40": (2, 200, 4, 2, 40, BF16, "hmajor", "mma"),
+    "d40_unaligned_fp16": (2, 77, 4, 2, 40, FP16, "unaligned", "mma"),
+    "unaligned": (2, 200, 8, 2, 64, BF16, "unaligned", "mma"),
+    "fp32_gpt2": (2, 16, 12, 12, 64, FP32, "fused", "fma"),
+    "fp32_s200": (2, 200, 8, 2, 64, FP32, "hmajor", "fma"),
+}
+
+
+def _route_operands(B, S, N, K, D, dtype, layout):
+    """q, k, v, dO and the outputs o / dk / dv as the wrappers lay them."""
+    def rows(h, length):
+        if layout == "unaligned":
+            return torch.zeros(B, h, length, D + 3, dtype=dtype)[..., :D]
+        return torch.zeros(B, h, length, D, dtype=dtype)
+
+    if layout == "fused":
+        qkv = torch.zeros(B, S, (N + 2 * K) * D, dtype=dtype)
+        q, k, v = torch.split(qkv, [N * D, K * D, K * D], dim=-1)
+        q = q.view(B, S, N, D).transpose(1, 2)
+        k, v = (x.view(B, S, K, D).transpose(1, 2) for x in (k, v))
+    elif layout == "cross":
+        q = torch.zeros(B, S, N * D, dtype=dtype).view(B, S, N, D)
+        q = q.transpose(1, 2)
+        k, v = torch.chunk(torch.zeros(B, S, 2 * K * D, dtype=dtype), 2, -1)
+        k, v = (x.view(B, S, K, D).transpose(1, 2) for x in (k, v))
+    else:
+        q, k, v = rows(N, S), rows(K, S), rows(K, S)
+    do = torch.zeros(B, S, N, D, dtype=dtype).transpose(1, 2)
+    o = torch.empty((B, S, N, D), dtype=dtype).transpose(1, 2)
+    dk = torch.empty((B, S, K, D), dtype=dtype).transpose(1, 2)
+    return q, k, v, do, o, dk
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_torch_kernel_route_at_every_path_and_phase3_case(case):
+    """K1 and K2 take the wgmma route at D = 64 or 128 in 16 bits on
+    operands TMA can describe (every main path's fused views), mma.sync
+    at D=32, D=40 and on rows d + 3 apart, the FMA kernels in fp32; K3
+    stays on mma.sync. The operands are those the wrappers hand the C side,
+    outputs included (``_launch`` decides over every rank-4 operand)."""
+    *shape, want = ROUTE_CASES[case]
+    q, k, v, do, o, dk = _route_operands(*shape)
+    assert TF.kernel_route("flash_fwd", q, k, v, o) == want
+    assert TF.kernel_route("flash_bwd_dkdv", q, k, v, do, dk, dk) == want
+    assert TF.kernel_route("flash_bwd_dq", q, k, v, do, o) == (
+        "fma" if want == "fma" else "mma")
+
+
+def test_torch_kernel_route_follows_the_base_and_the_strides():
+    """One element off 16 bytes, or a position stride that is not a
+    multiple of 8, takes mma.sync; the C side refuses the wgmma route on the
+    same operands (csrc/flash_sm90.cuh ``tma_ok``: D = 64 or 128 and
+    ``rows_16b``), and the route codes match csrc/flash_common.cuh."""
+    x = torch.zeros(1, 2, 8, 72, dtype=BF16)
+    assert TF.kernel_route("flash_fwd", *[x[..., :64]] * 3) == "wgmma"
+    assert TF.kernel_route("flash_fwd", *[x[..., 1:65]] * 3) == "mma"
+    y = torch.zeros(1, 2, 8, 68, dtype=BF16)[..., :64]
+    assert TF.kernel_route("flash_bwd_dkdv", *[y] * 4) == "mma"
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "hetu_galvatron_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "flash_common.cuh")) as f:
+        enum = f.read()
+    for name, code in TF.ROUTES.items():
+        assert re.search(rf"kRoute{name.capitalize()} = {code}\b", enum)
+    with open(os.path.join(csrc, "flash_sm90.cuh")) as f:
+        rule = f.read()
+    assert "return (D == 64 || D == 128) && rows_16b(p, s, D);" in rule

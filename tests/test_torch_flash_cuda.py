@@ -181,3 +181,121 @@ def test_torch_flash_fwd_tensor_core_kernel_matches_plain_on_cuda(case):
     limit = 2e-2 * (w.square().mean().sqrt() + w.abs())
     assert ((g - w).abs() <= limit).all()
     assert float((lse - lse_p).abs().max()) <= 1e-3
+
+
+# K1 and K2 on the wgmma + TMA route (bf16 / fp16, D = 64 or 128, operands
+# TMA can describe): small cases (GQA, packed and unsorted segments,
+# dropout, a ragged S, non-causal Sk != S), GPT-2's and the Qwen path's
+# fused-qkv views, and one row with 4 kv heads (K2's cluster split at its
+# smallest grid); each against the plain versions, and the mma.sync route
+# at the same inputs
+WG_CASES = {
+    "bf16_d64_gqa_packed_dropout": dict(dtype=torch.bfloat16, B=2, N=8, K=2,
+                                        S=200, D=64, seg="packed",
+                                        rate=0.1),
+    "fp16_d64_unsorted": dict(dtype=torch.float16, B=2, N=8, K=2, S=300,
+                              D=64, seg="runs"),
+    "bf16_d128_unsorted_dropout": dict(dtype=torch.bfloat16, B=2, N=8, K=2,
+                                       S=300, D=128, seg="runs", rate=0.1),
+    "fp16_d128_noncausal_sk136": dict(dtype=torch.float16, B=2, N=8, K=2,
+                                      S=200, D=128, causal=False, Sk=136),
+    "bf16_d128_ragged_s130": dict(dtype=torch.bfloat16, B=1, N=4, K=4,
+                                  S=130, D=128),
+    "bf16_d64_gpt2_fused": dict(dtype=torch.bfloat16, B=8, N=12, K=12,
+                                S=1024, D=64, fused=True),
+    "bf16_d128_qwen_b1_k4_packed": dict(dtype=torch.bfloat16, B=1, N=28,
+                                        K=4, S=4096, D=128, seg="packed",
+                                        fused=True),
+}
+
+
+def _close(got, want, tol=2e-2):
+    g, w = got.float(), want.float()
+    limit = tol * (w.square().mean().sqrt() + w.abs())
+    return float(((g - w).abs() / limit).max())
+
+
+@pytest.mark.parametrize("case", sorted(WG_CASES))
+def test_torch_flash_wgmma_route_matches_plain_on_cuda(case):
+    """K1 and K2 on the wgmma route: o, dk, dv within 2e-2 * (rms(want) +
+    |want|) and lse within 1e-3 absolute of the plain versions (phase 3's
+    rule), one launch a call, and the mma.sync route within the same rule
+    at the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    c = WG_CASES[case]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, N, K, S, D = c["B"], c["N"], c["K"], c["S"], c["D"]
+    Sk = c.get("Sk", S)
+    dt = c["dtype"]
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dt)
+
+    if c.get("fused"):
+        qkv = rnd(B, S, (N + 2 * K) * D)
+        q, k, v = torch.split(qkv, [N * D, K * D, K * D], dim=-1)
+        q = q.view(B, S, N, D).transpose(1, 2)
+        k = k.view(B, S, K, D).transpose(1, 2)
+        v = v.view(B, S, K, D).transpose(1, 2)
+    else:
+        q, k, v = rnd(B, N, S, D), rnd(B, K, Sk, D), rnd(B, K, Sk, D)
+    do = rnd(B, S, N, D).transpose(1, 2)
+    seg = {"packed": lambda: torch.from_numpy(_segments(B, S)),
+           "runs": lambda: torch.from_numpy(_runs(B, S, 8)),
+           None: lambda: None}[c.get("seg")]()
+    seg = None if seg is None else seg.to(dev)
+    rate = c.get("rate", 0.0)
+    seed = 17 if rate > 0 else None
+    kw = dict(causal=c.get("causal", True), dropout_rate=rate)
+    assert TF.kernel_route("flash_fwd", q, k, v) == "wgmma"
+    assert TF.kernel_route("flash_bwd_dkdv", q, k, v, do) == "wgmma"
+    assert TF.kernel_route("flash_bwd_dq", q, k, v, do) == "mma"
+
+    _build.reset_launch_counts()
+    o, lse = TF.flash_attention_hmajor(q, k, v, seg, seed, **kw)
+    torch.cuda.synchronize()
+    o_p, lse_p = TF.flash_fwd_plain(q, k, v, seg, seed, **kw)
+    assert o.dtype == dt and o.shape == o_p.shape
+    assert _close(o, o_p) <= 1.0
+    assert float((lse - lse_p).abs().max()) <= 1e-3
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta, seg, seed)
+    dk, dv = TF.flash_bwd_dkdv(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_fwd"] == 1
+    assert _build.launch_counts["flash_bwd_dkdv"] == 1
+    dk_p, dv_p = TF.flash_bwd_dkdv_plain(*args, **kw)
+    assert dk.dtype == dt and dk.shape == dk_p.shape
+    assert _close(dk, dk_p) <= 1.0 and _close(dv, dv_p) <= 1.0
+    # the same inputs on the mma.sync kernels
+    o_m, lse_m = TF.flash_attention_hmajor(q, k, v, seg, seed, _route="mma",
+                                           **kw)
+    dk_m, dv_m = TF.flash_bwd_dkdv(*args, _route="mma", **kw)
+    torch.cuda.synchronize()
+    assert _close(o_m, o_p) <= 1.0
+    assert float((lse_m - lse_p).abs().max()) <= 1e-3
+    assert _close(dk_m, dk_p) <= 1.0 and _close(dv_m, dv_p) <= 1.0
+    # a repeat gives the same bits (no atomics; fixed sum orders)
+    o2, _ = TF.flash_attention_hmajor(q, k, v, seg, seed, **kw)
+    dk2, dv2 = TF.flash_bwd_dkdv(*args, **kw)
+    assert torch.equal(o, o2) and torch.equal(dk, dk2)
+    assert torch.equal(dv, dv2)
+
+
+def test_torch_flash_wgmma_route_refuses_what_tma_cannot_describe():
+    """Forcing the wgmma route on rows 67 elements apart (not a multiple of
+    8) or at D=40: the C side refuses, the wrapper raises, nothing is
+    counted; the route rule sends both to mma.sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    dev = torch.device("cuda")
+    x = torch.randn(1, 4, 128, 67, device=dev).to(torch.bfloat16)[..., :64]
+    y = torch.randn(1, 4, 128, 40, device=dev).to(torch.bfloat16)
+    for t in (x, y):
+        assert TF.kernel_route("flash_fwd", t, t, t) == "mma"
+        _build.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            TF.flash_attention_hmajor(t, t, t, _route="wgmma")
+        assert _build.launch_counts["flash_fwd"] == 0

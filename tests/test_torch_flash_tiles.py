@@ -30,7 +30,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 # the 16-bit tolerance of chip_smoke.py phase 3: every element within
 # 2e-2 * (rms(want) + |want|)
 TOL_16 = 2e-2
-TILES = [(32, 64), (64, 32), (64, 64), (16, 48)]
+TILES = [(32, 64), (64, 32), (64, 64), (16, 48),
+         # the wgmma route's: K1 at D=64 and D=128, K2
+         (128, 128), (128, 64), (64, 128)]
 
 
 def _packed(B, S):  # chip_smoke.segments_for: thirds, halves, sixths
@@ -150,14 +152,28 @@ def test_torch_tile_counts_at_the_packed_layout():
 def test_torch_tile_sizes_mirror_the_kernel_source():
     with open(os.path.join(CSRC, "flash_tc.cuh")) as f:
         src = f.read()
+    with open(os.path.join(CSRC, "flash_sm90.cuh")) as f:
+        src90 = f.read()
 
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    def const(name, text=src):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
 
     sizes = TF.tile_sizes(torch.float16)
     assert sizes["flash_fwd"] == (const("K1_BQ"), const("K1_BK"))
     assert sizes["flash_bwd_dkdv"] == (const("K2_BQ"), const("K2_BK"))
     assert sizes["flash_bwd_dq"] == (const("K3_BQ"), const("K3_BK"))
+    # the wgmma route (csrc/flash_sm90.cuh), by head dimension; K3 keeps
+    # its mma.sync tiles
+    for d in (64, 128):
+        wg = TF.tile_sizes(torch.bfloat16, "wgmma", d)
+        assert wg["flash_fwd"] == (const("WG_K1_BQ", src90),
+                                   const(f"WG_K1_BK{d}", src90))
+        assert wg["flash_bwd_dkdv"] == (const("WG_K2_BQ", src90),
+                                        const("WG_K2_BK", src90))
+        assert wg["flash_bwd_dq"] == sizes["flash_bwd_dq"]
+    assert TF.tile_sizes(torch.float16, "mma") == sizes
+    assert TF.tile_sizes(torch.float32) == TF.tile_sizes(torch.bfloat16,
+                                                         "fma")
 
 
 # ---------------------------------------------------------------------------
@@ -197,14 +213,15 @@ def _tile_pd_ds(q, k, v, do, lse, delta, seg, b, n, q0, q1, k0, k1, *,
 
 
 def _emulate(q, k, v, do, lse, delta, seg, *, causal, seed, rate, dtype,
-             skip=True):
+             skip=True, route=None, head_dim=64):
     """(dq, dk, dv) in fp32, tile by tile over the pairs the kernels
-    compute (all pairs when ``skip`` is False)."""
+    compute (all pairs when ``skip`` is False), at the tiles of ``route``
+    (``TF.tile_sizes``)."""
     B, N, S, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = N // K
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    sizes = TF.tile_sizes(dtype)
+    sizes = TF.tile_sizes(dtype, route, head_dim)
     for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
         tq, tk = sizes[name]
         if skip:
@@ -244,8 +261,7 @@ EMU_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(EMU_CASES))
-def test_torch_tile_emulation_matches_jax_backward(case):
+def _check_bwd_emulation(case, route=None, head_dim=64):
     c = EMU_CASES[case]
     dtype, rate, seed = c["dtype"], c["rate"], c["seed"]
     B, N, K, S, D = 2, 4, 2, 96, 16
@@ -272,7 +288,8 @@ def test_torch_tile_emulation_matches_jax_backward(case):
     tq_, tk_, tv_, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     delta = (tdo * o).sum(-1)
     tseg = torch.from_numpy(seg)
-    kw = dict(causal=True, seed=seed, rate=rate, dtype=dtype)
+    kw = dict(causal=True, seed=seed, rate=rate, dtype=dtype, route=route,
+              head_dim=head_dim)
     got = _emulate(tq_, tk_, tv_, tdo, lse, delta, tseg, **kw)
     for g, w in zip(got, want):
         w = torch.from_numpy(np.array(w))
@@ -286,6 +303,20 @@ def test_torch_tile_emulation_matches_jax_backward(case):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_torch_tile_emulation_matches_jax_backward(case):
+    _check_bwd_emulation(case)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_torch_tile_emulation_matches_jax_backward_wgmma_tiles(case,
+                                                               head_dim):
+    """The same arithmetic at the wgmma route's K2 tiles (128 k rows, 64 q
+    rows: S=96 gives one ragged q tile and one ragged k tile)."""
+    _check_bwd_emulation(case, "wgmma", head_dim)
+
+
 # ---------------------------------------------------------------------------
 # a tile-by-tile emulation of the 16-bit K1 arithmetic
 # ---------------------------------------------------------------------------
@@ -294,16 +325,18 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
 
-def _emulate_fwd(q, k, v, seg, *, causal, seed, rate, dtype, skip=True):
+def _emulate_fwd(q, k, v, seg, *, causal, seed, rate, dtype, skip=True,
+                 route=None, head_dim=64):
     """(o in ``dtype``, lse fp32) as K1 computes them: per (q-tile, k-tile)
-    pair that the tile rule keeps (every pair when ``skip`` is False), fp32
-    scores scaled by log2(e) / sqrt(D), masked to NEG_INF, the online
-    softmax's m, l and corr (0 while m is NEG_INF), l over the undropped
-    p, and P rounded to ``dtype`` before P V (bf16 as hi + lo)."""
+    pair that the tile rule keeps (every pair when ``skip`` is False) at
+    the tiles of ``route``, fp32 scores scaled by log2(e) / sqrt(D), masked
+    to NEG_INF, the online softmax's m, l and corr (0 while m is NEG_INF),
+    l over the undropped p, and P rounded to ``dtype`` before P V (bf16 as
+    hi + lo)."""
     B, N, S, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = N // K
-    tq, tk = TF.tile_sizes(dtype)["flash_fwd"]
+    tq, tk = TF.tile_sizes(dtype, route, head_dim)["flash_fwd"]
     if skip:
         tiles = TF.computed_tiles(S, Sk, tq, tk, causal=causal, segments=seg)
     else:
@@ -371,6 +404,19 @@ def test_torch_fwd_tile_emulation_matches_jax_forward(case):
     o within TOL_16 * (rms + |want|), lse within 1e-3 absolute (the limits
     of chip_smoke.py phase 3). Skipped tiles leave o and lse bitwise as
     computing them would."""
+    _check_fwd_emulation(case)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("case", sorted(FWD_EMU_CASES))
+def test_torch_fwd_tile_emulation_matches_jax_forward_wgmma_tiles(case,
+                                                                  head_dim):
+    """The same at the wgmma route's K1 tiles: 128 q rows against 128 k
+    rows (D=64) or 64 (D=128); S=200 gives two q tiles, the last ragged."""
+    _check_fwd_emulation(case, "wgmma", head_dim)
+
+
+def _check_fwd_emulation(case, route=None, head_dim=64):
     c = FWD_EMU_CASES[case]
     dtype, rate, seed = c["dtype"], c["rate"], c["seed"]
     causal = c.get("causal", True)
@@ -396,7 +442,8 @@ def test_torch_fwd_tile_emulation_matches_jax_forward(case):
     want_lse = torch.from_numpy(np.array(lse_j[..., 0]))
     tq_, tk_, tv_ = (torch.from_numpy(x) for x in (q, k, v))
     tseg = None if seg is None else torch.from_numpy(seg)
-    kw = dict(causal=causal, seed=seed, rate=rate, dtype=dtype)
+    kw = dict(causal=causal, seed=seed, rate=rate, dtype=dtype, route=route,
+              head_dim=head_dim)
     o, lse = _emulate_fwd(tq_, tk_, tv_, tseg, **kw)
     g = o.float()
     limit = TOL_16 * (want_o.square().mean().sqrt() + want_o.abs())

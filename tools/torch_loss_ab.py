@@ -17,6 +17,13 @@ limit), and per path the losses, evaluation losses, step time and peak
 memory. Run it for the parent and the change in turns (parent, change,
 change, parent) in one call and compare the losses: equal losses mean
 equal bits on this card.
+
+    python3 tools/torch_loss_ab.py --compare FIRST.json OTHER.json ...
+
+reads such lines and prints, per path, each other run against the first:
+the largest relative difference of the losses over the steps, that of
+step 0 (forward only at the same weights), of the evaluation losses, and
+both runs' step ms; its last line is the same as JSON.
 """
 
 from __future__ import annotations
@@ -27,7 +34,44 @@ import sys
 import tempfile
 
 
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def compare(paths) -> int:
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            runs.append(json.loads(f.read().strip().splitlines()[-1]))
+    first, out = runs[0], []
+    for path, run in zip(paths[1:], runs[1:]):
+        for name in ("gpt2", "qwen", "mixtral"):
+            a, b = run[name], first[name]
+            rel = [_rel(x, y) for x, y in zip(a["losses"], b["losses"])]
+            def ev(r):
+                return ([v["loss"] for v in r.get("val_losses") or []]
+                        + ([] if r.get("test_loss") is None
+                           else [r["test_loss"]]))
+
+            evals = [_rel(x, y) for x, y in zip(ev(a), ev(b))] or [0.0]
+            rec = dict(run=path, against=paths[0], path=name,
+                       steps=len(rel), max_rel_loss_diff=max(rel),
+                       step0_rel_diff=rel[0], max_rel_eval_diff=max(evals),
+                       bit_identical=a["losses"] == b["losses"],
+                       step_ms=a["step_ms"], step_ms_first=b["step_ms"])
+            out.append(rec)
+            print(f"{name:<8} {path} against {paths[0]}: losses max rel "
+                  f"{rec['max_rel_loss_diff']:.3e} over {len(rel)} steps, "
+                  f"step 0 {rel[0]:.3e}, evals {rec['max_rel_eval_diff']:.3e}"
+                  f"{' (bit-identical)' if rec['bit_identical'] else ''}; "
+                  f"step {a['step_ms']:.2f} ms against {b['step_ms']:.2f}")
+    print(json.dumps({"compare": out}))
+    return 0
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--compare"] and len(argv) >= 3:
+        return compare(argv[1:])
     if len(argv) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
